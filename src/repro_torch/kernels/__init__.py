@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels for the hot path, one directory per kernel.
+
+Each directory holds ``ref.py`` (the plain PyTorch version, the oracle the
+CPU tests and the on-card checks use) and ``ops.py`` (the wrapper: the
+plain version for CPU tensors, the CUDA kernel for CUDA tensors, never a
+fallback).  The CUDA sources are in ``csrc/``; ``_build.py`` compiles them
+with ``nvcc`` at first use.
+
+    delta_apply  fused invertible hop apply: S' = S + M; h = act(norm(S')W + b)
+    mlp_apply    fused GIN hop apply: fold + z-term + two chained products
+"""

@@ -1,0 +1,31 @@
+"""Operand checks shared by the kernel wrappers."""
+from __future__ import annotations
+
+import torch
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every operand lies on the CPU (the plain-version route)."""
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def check_operand(name: str, t: torch.Tensor, shape: tuple,
+                  device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous fp32 tensor of ``shape`` on the
+    CUDA ``device``: what the kernels take, and nothing else."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} is {t.dtype}, expected torch.float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def cuda_device(t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"operands must all lie on the CPU or on one CUDA "
+                         f"device; got {t.device}")
+    return t.device
