@@ -4,16 +4,21 @@
     python3 chip_smoke.py
 
 Phase 1 builds the hand-written CUDA kernels from this checkout's sources
-with nvcc (into build/kernels/).  Phase 2 holds each kernel against its
-plain PyTorch version at the main path's shapes and at the ragged shapes
-of tests/test_kernels.py, and times both.  Phase 3 drives the port's main
-path: a ``device``-engine session per kernel -- gc-s (delta_apply) and
-gi-s (mlp_apply) -- over a synthetic power-law graph at the paper's Arxiv
-scale (169,343 vertices, 1,166,243 edges), 3 layers of 128 features and
-40 classes, ingesting a 3000-update paper-protocol stream in batches of
-100 (the last 5 batches under torch.profiler, for the device's busy
-share); it checks the launch counts and holds every layer against the
-port's own full-inference oracle.
+with nvcc (into build/kernels/), one nvcc per source, all at once.
+Phase 2 holds each kernel against its plain PyTorch version at the main
+path's shapes and at the ragged shapes of tests/test_kernels.py, and times
+both.  Phase 3 drives the port's main paths, one ``device``-engine session
+each -- gc-s (delta_apply), gi-s (mlp_apply), and the monotonic gs-max and
+gc-min (extremum_apply) -- over a synthetic power-law graph at the paper's
+Arxiv scale (169,343 vertices, 1,166,243 edges), 3 layers of 128 features
+and 40 classes, ingesting a 3000-update paper-protocol stream in batches
+of 100 (the last 5 batches under torch.profiler, for the device's busy
+share).  Every launch count is set to 0 just before a session and read
+just after it; each session must have launched its kernel on every hop of
+every batch, and holds every layer against the port's own full-inference
+oracle.  The monotonic sessions also hold S[1] bit-equal to the oracle's
+and the witness invariant S[l][v,d] == H[l-1][C[l][v,d], d] exactly, on
+the device, and report their SHRINK counters and filter pass share.
 
 Any fault ends the run with a traceback and a non-zero exit; nothing is
 caught.  Without a CUDA card, or without the repository beside this file,
@@ -39,7 +44,8 @@ ROOT = Path(__file__).resolve().parent
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
-S_TOL = dict(atol=1e-5, rtol=1e-5)   # tests/test_kernels.py bars
+S_TOL = dict(atol=1e-5, rtol=1e-5)   # tests/test_kernels.py bars (extremum
+#                                      S' is held bit-equal instead)
 H_TOL = dict(atol=1e-4, rtol=1e-4)
 ORACLE_TOL = dict(atol=2e-3, rtol=2e-3)
 
@@ -133,6 +139,62 @@ def check_delta(gen, R, Din, Dout, mean, relu, *, timed: bool) -> dict:
     return row
 
 
+def extremum_work(R: int, Din: int, Dout: int,
+                  masked: bool) -> tuple[int, int]:
+    """(bytes, flops): reads base (S or reagg, by the mask), M, the uint8
+    mask when masked, W and b once; writes S', h once."""
+    per_cell = 4 + 4 + 4 + (1 if masked else 0)
+    return (R * Din * per_cell + 4 * (R * Dout + Din * Dout + Dout),
+            2 * R * Din * Dout)
+
+
+def check_extremum(gen, R, Din, Dout, maximize, masked, *,
+                   timed: bool) -> dict:
+    """Identity (+/-inf) rows in S and M, as tests/test_kernels.py puts
+    them; with ``masked`` a ~7% shrink mask (bool, as the engine passes
+    it) and its re-aggregated cells."""
+    from repro_torch.kernels.extremum_apply import extremum_apply
+    from repro_torch.kernels.extremum_apply.ref import extremum_apply_ref
+    dev = torch.device(DEVICE)
+    ident = -float("inf") if maximize else float("inf")
+    S = torch.randn((R, Din), generator=gen)
+    M = torch.randn((R, Din), generator=gen)
+    S[torch.randperm(R, generator=gen)[:max(R // 8, 1)]] = ident
+    M[torch.randperm(R, generator=gen)[:max(R // 4, 1)]] = ident
+    W = torch.randn((Din, Dout), generator=gen) / Din ** 0.5
+    b = torch.randn((Dout,), generator=gen)
+    args = [t.to(dev) for t in (S, M, W, b)]
+    kw = {}
+    if masked:
+        mask = torch.rand((R, Din), generator=gen) < 0.07
+        kw = dict(reagg=(torch.randn((R, Din), generator=gen)
+                         * mask).to(dev), mask=mask.to(dev))
+
+    def kernel():
+        return extremum_apply(*args, **kw, maximize=maximize, relu=True)
+
+    def plain():
+        return extremum_apply_ref(*args, **kw, maximize=maximize, relu=True)
+
+    Sk, hk = kernel()
+    Sr, hr = plain()
+    torch.cuda.synchronize()
+    if not torch.equal(Sk, Sr):
+        raise AssertionError(f"extremum_apply S' differs from the plain "
+                             f"version at R={R} Din={Din} Dout={Dout} "
+                             f"maximize={maximize} masked={masked}")
+    torch.testing.assert_close(hk, hr, **H_TOL)
+    row = dict(kernel="extremum_apply", R=R, Din=Din, Dout=Dout,
+               maximize=maximize, masked=masked, err_S=0.0,
+               max_abs_err=(hk - hr).abs().max().item())
+    if timed:
+        nbytes, flops = extremum_work(R, Din, Dout, masked)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        row.update(ms=device_ms(kernel), plain_ms=device_ms(plain),
+                   bound_ms=b_ms, bound_by=b_by)
+    return row
+
+
 def check_mlp(gen, R, Din, Dh, Dout, mean, relu, *, timed: bool) -> dict:
     from repro_torch.kernels.mlp_apply import mlp_apply
     from repro_torch.kernels.mlp_apply.ref import mlp_apply_ref
@@ -174,6 +236,16 @@ def phase_kernels() -> list[dict]:
                                     timed=True))
             rows.append(check_mlp(gen, R, 128, Dout, Dout, False, True,
                                   timed=True))
+            for maximize in (True, False):
+                for masked in (True, False):
+                    rows.append(check_extremum(gen, R, 128, Dout, maximize,
+                                               masked, timed=True))
+    for R, Din, Dout in ((64, 32, 16), (128, 128, 128), (33, 48, 7),
+                         (256, 64, 200)):
+        for maximize in (True, False):
+            for masked in (True, False):
+                rows.append(check_extremum(gen, R, Din, Dout, maximize,
+                                           masked, timed=False))
     for R, Din, Dout in ((64, 32, 16), (128, 128, 128), (33, 48, 7),
                          (256, 64, 200)):
         for mean, relu in ((False, True), (True, False), (True, True)):
@@ -189,18 +261,17 @@ def phase_kernels() -> list[dict]:
     return rows
 
 
-def profile_window(session, updates) -> dict:
+def profile_window(session, updates):
     """A few batches under torch.profiler: the device's busy share (its
     kernels' and copies' device time over the window's wall time, which
     the profiler's own host cost inflates), device operations per batch,
-    and the largest device-time entries."""
+    and the largest device-time entries.  Returns (summary, report)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        report = session.ingest(updates, batch_size=BATCH,
-                                keep_results=False)
+        report = session.ingest(updates, batch_size=BATCH)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -212,13 +283,36 @@ def profile_window(session, updates) -> dict:
         device_busy_share=busy_us * 1e-6 / wall if dev else None,
         device_ops_per_batch=sum(e.count for e in dev) / report.n_batches,
         top=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
-             for e in top])
+             for e in top]), report
 
 
-def run_session(workload: str, counter) -> dict:
-    """One arxiv-scale device-engine session, checked against the oracle."""
+def check_witnesses(eng) -> int:
+    """S[l][v,d] == H[l-1][C[l][v,d], d] exactly, on the device, wherever
+    C >= 0, and the identity (+/-inf) wherever C == -1; returns the number
+    of witnessed cells checked."""
+    n, checked = eng.n, 0
+    for l in range(1, len(eng.state.S)):
+        C = eng.state.C[l][:n].long()
+        S = eng.state.S[l][:n]
+        has = C >= 0
+        got = eng.state.H[l - 1][:n].gather(0, C.clamp(min=0))
+        if not torch.equal(got[has], S[has]):
+            raise AssertionError(f"layer {l}: a witness does not attain "
+                                 f"its extremum")
+        if torch.isfinite(S[~has]).any():
+            raise AssertionError(f"layer {l}: an empty cell is finite")
+        checked += int(has.sum())
+    return checked
+
+
+def run_session(workload: str, counters: dict, kernel: str) -> dict:
+    """One arxiv-scale device-engine session, checked against the oracle.
+    Every launch count is set to 0 just before the session is driven and
+    read just after; ``kernel`` must have run on every hop of every
+    batch."""
     from repro_torch.api import InferenceSession, SessionConfig
     from repro_torch.core.full import full_inference
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     session = InferenceSession.build(SessionConfig(
         workload=workload, engine="device", graph="powerlaw",
@@ -226,22 +320,26 @@ def run_session(workload: str, counter) -> dict:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     updates = session.make_stream(N_UPDATES, seed=1).updates
-    before = counter.launches
-    report = session.ingest(updates[:-N_PROFILED], batch_size=BATCH,
-                            keep_results=False)
+    eng = session.engine.impl
+    H_start = [h.clone() for h in eng.state.H] if eng.monotonic else None
+    for fn in counters.values():
+        fn.launches = 0
+    report = session.ingest(updates[:-N_PROFILED], batch_size=BATCH)
     torch.cuda.synchronize()
-    profiled = profile_window(session, updates[-N_PROFILED:])
-    launches = counter.launches - before
+    profiled, report_p = profile_window(session, updates[-N_PROFILED:])
+    launches = {name: fn.launches for name, fn in counters.items()}
     L = ARXIV["n_layers"]
-    n_batches = report.n_batches + profiled["batches"]
-    if report.n_batches < 20 or launches < L * n_batches:
-        raise AssertionError(f"{workload}: {launches} kernel launches for "
-                             f"{n_batches} batches x {L} layers")
+    n_batches = report.n_batches + report_p.n_batches
+    if report.n_batches < 20 or launches[kernel] < L * n_batches:
+        raise AssertionError(f"{workload}: {launches[kernel]} {kernel} "
+                             f"launches for {n_batches} batches x {L} "
+                             f"layers")
 
     state = session.sync()
     x = torch.as_tensor(state.H[0], device=DEVICE)
-    H_ref, _ = full_inference(session.workload, session.params, x,
-                              *session.graph.coo(), session.graph.in_degree)
+    H_ref, S_ref = full_inference(session.workload, session.params, x,
+                                  *session.graph.coo(),
+                                  session.graph.in_degree)
     layer_err, layer_tol_use = [], []
     for l in range(1, L + 1):
         got = torch.as_tensor(state.H[l], device=DEVICE)
@@ -263,7 +361,6 @@ def run_session(workload: str, counter) -> dict:
             1 + H_ref[L][bad].abs().max().item()):
         raise AssertionError(f"{workload}: predictions disagree beyond "
                              f"ties at {bad.numel()} vertices")
-    eng = session.engine.impl
     lat = sorted(report.latencies)
     p50 = statistics.median(lat) * 1e3
     result = dict(
@@ -279,6 +376,34 @@ def run_session(workload: str, counter) -> dict:
         predict_mismatch=int(bad.numel()),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
         profiled=profiled)
+    if eng.monotonic:
+        # a max/min over the unchanged features involves no rounding
+        if not torch.equal(torch.as_tensor(state.S[1], device=DEVICE),
+                           S_ref[1]):
+            raise AssertionError(f"{workload}: S[1] differs from the "
+                                 f"oracle's")
+        results = report.results + report_p.results
+        affected = sum(int(r.affected.size) for r in results)
+        result.update(
+            pull=eng.pull, witnesses_checked=check_witnesses(eng),
+            counters={f: sum(getattr(r, f) for r in results) for f in (
+                "shrink_events", "rows_reaggregated", "dims_reaggregated",
+                "recover_hits")},
+            # share of the last hop's recipients whose embedding changed
+            filter_pass_share=affected / max(int(eng.sizes_total[-1][0]),
+                                             1),
+            needed_per_hop_total=eng.sizes_total.tolist(),
+            in_mirror_uploads=eng.in_mirror.uploads,
+            # per layer: rows whose H moved over the stream, and those that
+            # moved by less than 1e-5 relative -- rounding, not change
+            changed_rows=[], tiny_change_rows=[])
+        for l in range(1, L + 1):
+            h0 = H_start[l][:eng.n]
+            moved = (eng.state.H[l][:eng.n] - h0).abs().amax(dim=1)
+            scale = h0.abs().amax(dim=1).clamp(min=1.0)
+            result["changed_rows"].append(int((moved > 0).sum()))
+            result["tiny_change_rows"].append(
+                int(((moved > 0) & (moved < 1e-5 * scale)).sum()))
     log("session", json.dumps(result))
     return result
 
@@ -295,6 +420,7 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.delta_apply import delta_apply
+    from repro_torch.kernels.extremum_apply import extremum_apply
     from repro_torch.kernels.mlp_apply import mlp_apply
 
     # ---- phase 1: build --------------------------------------------------
@@ -315,13 +441,14 @@ def main() -> int:
     # ---- phase 2: kernels against their plain versions -------------------
     phase_kernels()
 
-    # ---- phase 3: the main path ------------------------------------------
-    counters = {"delta_apply": delta_apply, "mlp_apply": mlp_apply}
-    for fn in counters.values():
-        fn.launches = 0
-    sessions = {"delta_apply": run_session("gc-s", delta_apply),
-                "mlp_apply": run_session("gi-s", mlp_apply)}
-    launches = {name: fn.launches for name, fn in counters.items()}
+    # ---- phase 3: the main paths, one session each -----------------------
+    counters = {"delta_apply": delta_apply, "mlp_apply": mlp_apply,
+                "extremum_apply": extremum_apply}
+    sessions = [run_session(wl, counters, kernel) for wl, kernel in (
+        ("gc-s", "delta_apply"), ("gi-s", "mlp_apply"),
+        ("gs-max", "extremum_apply"), ("gc-min", "extremum_apply"))]
+    launches = {name: sum(s["launches"][name] for s in sessions)
+                for name in counters}
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"{name} never launched on the main path")
@@ -329,16 +456,26 @@ def main() -> int:
     # ---- the kernels line: timed at the main path's largest hop ----------
     gen = torch.Generator().manual_seed(1)
     kernels = []
-    for name, source, replaces in (
+    for name, source, replaces, check in (
             ("delta_apply", "src/repro_torch/kernels/csrc/delta_apply.cu",
-             "src/repro/kernels/delta_apply/kernel.py:61"),
+             "src/repro/kernels/delta_apply/kernel.py:61",
+             lambda R, D: check_delta(gen, R, 128, D, False, True,
+                                      timed=True)),
             ("mlp_apply", "src/repro_torch/kernels/csrc/mlp_apply.cu",
-             "src/repro/kernels/mlp_apply/kernel.py:66")):
-        R = max(r for r, _ in sessions[name]["hop_caps"])
-        row = (check_delta(gen, R, 128, 128, False, True, timed=True)
-               if name == "delta_apply" else
-               check_mlp(gen, R, 128, 128, 128, False, True, timed=True))
-        log("kernel_main", json.dumps(row))
+             "src/repro/kernels/mlp_apply/kernel.py:66",
+             lambda R, D: check_mlp(gen, R, 128, D, D, False, True,
+                                    timed=True)),
+            ("extremum_apply",
+             "src/repro_torch/kernels/csrc/extremum_apply.cu",
+             "src/repro/kernels/extremum_apply/kernel.py:115",
+             lambda R, D: check_extremum(gen, R, 128, D, True, True,
+                                         timed=True))):
+        R = max(c[0] for s in sessions if s["launches"][name]
+                for c in s["hop_caps"])
+        rows = [check(R, D) for D in (128, 40)]
+        for row in rows:
+            log("kernel_main", json.dumps(row))
+        row = rows[0]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name], max_abs_err=row["max_abs_err"],

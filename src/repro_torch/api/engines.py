@@ -22,6 +22,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.aggregators import compute_contributors
 from repro_torch.core.device_engine import DeviceEngine
 from repro_torch.core.full import full_inference
 from repro_torch.core.graph import DynamicGraph, UpdateBatch
@@ -49,6 +50,8 @@ def _materialize_state(workload: Workload, params: list, graph: DynamicGraph,
     state.H = [_to_numpy(h) for h in H]
     state.S = [_to_numpy(s) for s in S]
     state.k = graph.in_degree.copy()
+    if workload.agg.algebra == "monotonic":
+        state.C = compute_contributors(workload.agg, state.H, state.S, graph)
     return state
 
 
@@ -61,7 +64,7 @@ _DEVICE_OPTIONS = (
     _DEVICE_OPTION,
     EngineOption("min_bucket", 64, "smallest static buffer capacity"),
     EngineOption("donate", True,
-                 "update the H/S/k device tensors in place through the gated "
+                 "update the H/S/C/k device tensors in place through the gated "
                  "commit (disable for A/B equivalence checks against the "
                  "copying path)"),
     EngineOption("use_pallas", False,
@@ -81,8 +84,9 @@ _DEVICE_OPTIONS = (
                  "run the rung-0 cap schedule once at construction on a "
                  "sentinel no-op batch"),
     EngineOption("tolerance", 0.0,
-                 "bounded-family approximate mode; the invertible workloads "
-                 "ported here are exact, so any value > 0 raises"),
+                 "bounded-family approximate mode; the invertible and "
+                 "monotonic workloads ported here are exact, so any value "
+                 "> 0 raises"),
 )
 
 
@@ -116,9 +120,14 @@ class DeviceAdapter:
         # wall_seconds covers the fully committed state
         t0 = time.perf_counter()
         affected = self._impl.apply_batch(batch)
+        impl = self._impl
         return UpdateResult(affected=affected,
                             wall_seconds=time.perf_counter() - t0,
-                            affected_per_hop=[int(affected.size)])
+                            affected_per_hop=[int(affected.size)],
+                            shrink_events=impl.last_shrink_events,
+                            rows_reaggregated=impl.last_rows_reaggregated,
+                            dims_reaggregated=impl.last_dims_reaggregated,
+                            recover_hits=impl.last_recover_hits)
 
     def flush(self) -> None:
         """Drain the async pipeline (no-op when synchronous)."""
@@ -141,6 +150,9 @@ class DeviceAdapter:
         for s_host, s_dev in zip(self._host.S[1:], dev.S[1:]):
             s_host[...] = s_dev[:n].cpu().numpy()
         self._host.k[...] = dev.k[:n].cpu().numpy()
+        if self._host.C is not None:
+            for c_host, c_dev in zip(self._host.C[1:], dev.C[1:]):
+                c_host[...] = c_dev[:n].cpu().numpy()
         return self._host
 
     @property

@@ -281,7 +281,8 @@ class InferenceSession:
 
         Downloads the current engine's state to the host, then constructs
         the new backend over the *same* graph + state -- exact, because all
-        backends share the (H, S, k) state contract.
+        backends share the (H, S, k) state contract, plus the contributor
+        refs C of the monotonic workloads.
         """
         name = canonical_name(name)
         if name == self.engine_name and not options:

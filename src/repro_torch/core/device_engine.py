@@ -1,5 +1,5 @@
 """Device-resident incremental RIPPLE propagation (single replica),
-invertible family.
+invertible and monotonic families.
 
 The host engines drive NumPy; this module keeps the whole L-hop
 propagation of one update batch on the device, with *static bucket
@@ -37,6 +37,14 @@ patch-gather), accumulating the exact overflow flag on the device; phase
 2 writes all patches with indices gated on the flag (an overflowing
 attempt sends every write to the trash row, so the state holds the
 pre-batch values bit-exactly and the ladder can retry).
+
+Monotonic workloads (max/min) run through :func:`propagate_monotonic`:
+candidate extrema compact into per-row segment-max mailboxes; SHRINK cells
+(tracked contributor lost, classified per ``(row, dim)``) first face the
+re-cover probe, and the survivors are re-derived from a mirrored in-CSR;
+the hop apply runs through ``extremum_apply``; the next frontier keeps
+only rows whose embedding changed (filtered propagation).  See
+core/aggregators.py for the algebra.
 """
 from __future__ import annotations
 
@@ -46,9 +54,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.delta_apply import delta_apply
+from repro_torch.kernels.extremum_apply import extremum_apply
 from repro_torch.kernels.mlp_apply import mlp_apply
 from repro_torch.utils import next_bucket, pad_to, resolve_device
 
+from .aggregators import segment_extremum
 from .graph import _GROW, _MIN_SLACK, DynamicGraph, flat_row_indices
 from .workloads import Workload
 
@@ -63,9 +73,10 @@ def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.clone()
 
 
-def _with_trash_row(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """``arr`` on the device with one zero row appended at index n."""
-    out = np.zeros((arr.shape[0] + 1,) + arr.shape[1:], dtype=np.float32)
+def _with_trash_row(arr: np.ndarray, device: torch.device,
+                    fill=0) -> torch.Tensor:
+    """``arr`` on the device with one ``fill`` row appended at index n."""
+    out = np.full((arr.shape[0] + 1,) + arr.shape[1:], fill, dtype=arr.dtype)
     out[:-1] = arr
     return _upload(out, device)
 
@@ -159,11 +170,14 @@ class DeviceState(NamedTuple):
     H: tuple[torch.Tensor, ...]  # [n+1, d_l] per layer 0..L (row n: trash)
     S: tuple[torch.Tensor, ...]  # [n+1, d_{l-1}] per layer 1..L ([0] empty)
     k: torch.Tensor              # [n+1] in-degree (maintained on device)
+    C: tuple[torch.Tensor, ...] = ()  # monotonic contributor refs, int32,
+    #                                   index-aligned with S (() invertible)
 
     def clone(self) -> "DeviceState":
         return DeviceState(H=tuple(h.clone() for h in self.H),
                            S=tuple(s.clone() for s in self.S),
-                           k=self.k.clone())
+                           k=self.k.clone(),
+                           C=tuple(c.clone() for c in self.C))
 
 
 class BatchDev(NamedTuple):
@@ -228,6 +242,29 @@ def _patched(n: int, base: torch.Tensor, pos: torch.Tensor,
                        base[idx_c])
 
 
+def _ragged_gather(n: int, csr: DeviceCSR, rows: torch.Tensor,
+                   degs: torch.Tensor, cap: int):
+    """Expand the CSR rows' adjacency lists into one static bucket.
+
+    ``rows [R]`` are vertex ids (sentinel n allowed) with per-row counts
+    ``degs [R]`` (0 for rows to skip); slot j of the bucket holds entry
+    ``j - csum[fid] + degs[fid]`` of row ``fid``, found by ``searchsorted``
+    on the running count.  Returns (cols [cap] sentinel-n padded, flat
+    [cap] pool slots (0 where invalid), fid [cap] source row slot, valid
+    [cap], total_needed).
+    """
+    r_cap = rows.shape[0]
+    csum = torch.cumsum(degs, 0)
+    total = csum[-1]
+    e = torch.arange(cap, device=rows.device)
+    fid = torch.searchsorted(csum, e, right=True).clamp(max=r_cap - 1)
+    off = e - (csum[fid] - degs[fid])
+    valid = e < total
+    flat = torch.where(valid, csr.start[rows[fid].clamp(max=n - 1)] + off, 0)
+    cols = torch.where(valid, csr.col[flat], n)
+    return cols, flat, fid, valid, total
+
+
 def _hop_messages(n: int, h_pre: torch.Tensor, csr: DeviceCSR,
                   frontier: torch.Tensor, delta: torch.Tensor,
                   batch: BatchDev, *, weighted: bool, self_dep: bool,
@@ -239,22 +276,12 @@ def _hop_messages(n: int, h_pre: torch.Tensor, csr: DeviceCSR,
     retraction messages need.  Returns (all_dst [E_tot], all_val [E_tot, d],
     n_edges_needed) where E_tot = e_cap + A + D (+ F for self-dep).
     """
-    f_cap = frontier.shape[0]
-    dev = frontier.device
     degs = torch.where(frontier < n, csr.length[frontier.clamp(max=n - 1)], 0)
-    csum = torch.cumsum(degs, 0)
-    total = csum[-1]
-
     # ragged expansion of frontier out-edges into the static edge bucket
-    e = torch.arange(e_cap, device=dev)
-    fid_c = torch.searchsorted(csum, e, right=True).clamp(max=f_cap - 1)
-    off = e - (csum[fid_c] - degs[fid_c])
-    vsrc = frontier[fid_c]
-    evalid = e < total
-    flat = torch.where(evalid, csr.start[vsrc.clamp(max=n - 1)] + off, 0)
-    edst = torch.where(evalid, csr.col[flat], n)
-    ew = csr.w[flat] if weighted else torch.ones(e_cap, device=dev)
-    evals = delta[fid_c] * (ew * evalid)[:, None]
+    edst, flat, fid, evalid, total = _ragged_gather(n, csr, frontier, degs,
+                                                    e_cap)
+    ew = csr.w[flat] if weighted else torch.ones(e_cap, device=flat.device)
+    evals = delta[fid] * (ew * evalid)[:, None]
 
     def h_old(src: torch.Tensor) -> torch.Tensor:
         return h_pre[src.clamp(max=n - 1)]
@@ -440,6 +467,263 @@ def propagate(workload: Workload, n: int,
     return state, report
 
 
+# ---------------------------------------------------------------------------
+# Monotonic (max/min) propagation: GROW via candidate segment-extremum,
+# SHRINK via in-neighborhood pulls, filtered frontier
+# ---------------------------------------------------------------------------
+def _masked_pairs(mask: torch.Tensor, cap: int, fill_row: int):
+    """Row-major (row, col) indices of the True cells of ``mask``, padded
+    with ``(fill_row, 0)`` to the static ``cap``: one cumsum and one
+    scatter into a ``[cap + 1]`` buffer whose last slot takes the padding
+    and the cells beyond ``cap`` (callers detect those through their own
+    ``mask.sum() > cap`` overflow check).  No ``nonzero``, so no wait for
+    the host."""
+    R, D = mask.shape
+    flat = mask.reshape(-1)
+    dest = torch.where(flat, torch.cumsum(flat, 0) - 1, cap).clamp(max=cap)
+    lin = torch.full((cap + 1,), R * D, dtype=torch.int64,
+                     device=mask.device)
+    lin = lin.scatter_(0, dest, torch.arange(R * D, device=mask.device))[:cap]
+    hit = lin < R * D
+    return torch.where(hit, lin // D, fill_row), torch.where(hit, lin % D, 0)
+
+
+def _expand_frontier_edges(n: int, csr: DeviceCSR, frontier: torch.Tensor,
+                           e_cap: int):
+    """Ragged gather of frontier out-edges into a static bucket.
+
+    Returns (edst [e_cap], esrc [e_cap], n_edges_needed); sentinel n pads.
+    """
+    degs = torch.where(frontier < n, csr.length[frontier.clamp(max=n - 1)], 0)
+    edst, _, fid, evalid, total = _ragged_gather(n, csr, frontier, degs,
+                                                 e_cap)
+    esrc = torch.where(evalid, frontier[fid], n)
+    return edst, esrc, total
+
+
+def _scatter_cells(base: torch.Tensor, pr: torch.Tensor, pdim: torch.Tensor,
+                   vals) -> torch.Tensor:
+    """``base [R, d]`` with ``vals`` written at the (pr, pdim) cells; pr == R
+    is the padding row, sent to a trash row that is cut off again."""
+    out = torch.cat([base, base[:1]])
+    out[pr, pdim] = vals
+    return out[:-1]
+
+
+def _monotonic_hop(workload: Workload, params_l: dict, layer: int, n: int,
+                   state: DeviceState, out_csr: DeviceCSR, in_csr: DeviceCSR,
+                   batch: BatchDev, frontier: torch.Tensor, patch, *,
+                   r_cap: int, e_cap: int, p_cap: int, pd_cap: int,
+                   pull: str):
+    """One GROW/SHRINK hop layer -> layer+1 (reads only); returns the hop
+    patch (rec_idx, S_new, C_new, h_new), the filtered next frontier, the
+    overflow flag, the needed sizes (recipients, edges, pulled, pairs) and
+    the counters (shrink_events, rows_reaggregated, dims_reaggregated,
+    recover_hits).
+
+    SHRINK runs per ``(row, dim)``: classification gives an ``[r_cap, d]``
+    mask (one cell per shrunk dim, deduplicated across the batch's
+    messages), the re-cover probe drops every cell the batch's own
+    candidate extremum already re-witnesses, and the survivors re-derive
+    from the in-CSR.  ``pull`` picks how: ``"pairs"`` flattens the cells
+    into (row, dim) pairs (static cap ``pd_cap``) and gathers single
+    columns of their in-neighborhoods as element reads, so ``p_cap`` bounds
+    pulled elements; ``"rows"`` re-derives every dim of each needy row with
+    row gathers, so ``p_cap`` bounds their total in-degree.  The counters
+    count cells in both.
+
+    All extremum arithmetic runs in max-space (``sign * value``); the
+    post-update layer-l values are read through the previous hop's patch.
+    """
+    agg = workload.agg
+    sign = agg.sign
+    H_pre, S_next, C_next = state.H[layer], state.S[layer + 1], \
+        state.C[layer + 1]
+    dev = frontier.device
+    pos_p = _patch_pos(n, patch[0])
+
+    edst, esrc, needed = _expand_frontier_edges(n, out_csr, frontier, e_cap)
+    overflow = needed > e_cap
+
+    # unified message stream: frontier edges + adds are candidates AND
+    # probes; deletes are probes only (their value must never grow S)
+    msg_dst = torch.cat([edst, batch.add_dst, batch.del_dst])
+    msg_src = torch.cat([esrc, batch.add_src, batch.del_src])
+    n_cand = edst.shape[0] + batch.add_dst.shape[0]
+    is_del = torch.arange(msg_dst.shape[0], device=dev) >= n_cand
+    valid = (msg_dst < n) & (msg_src < n)
+
+    # affected rows = unique message dsts (+ frontier for self-dependence)
+    all_dst = msg_dst
+    if workload.spec.self_dependent:
+        all_dst = torch.cat([all_dst, frontier])
+    rec_idx, pos, n_rec = _unique_recipients(n, all_dst, r_cap)
+    overflow = overflow | (n_rec > r_cap)
+    aff_c = rec_idx.clamp(max=n - 1)
+    real_row = rec_idx < n
+    slot = torch.where(valid, pos[msg_dst.clamp(max=n)], r_cap)
+
+    vals = _patched(n, H_pre, pos_p, patch[1], msg_src)  # post-update values
+
+    # ---- per-(message, dim) SHRINK classification, deduped per row -------
+    dst_c = msg_dst.clamp(max=n - 1)
+    covered = C_next[dst_c] == msg_src[:, None]
+    gone = is_del[:, None] | (sign * S_next[dst_c] > sign * vals)
+    dim_shrink = covered & gone & valid[:, None]
+    n_shrink = dim_shrink.any(dim=1).sum()
+    row_dim = _segment_sum(dim_shrink.to(torch.float32), slot, r_cap) > 0
+
+    # ---- GROW candidate extremum + witnesses (also feeds the probe) ------
+    cslot = torch.where(valid & ~is_del, slot, r_cap)
+    cand_S, cand_C = segment_extremum(agg, vals, cslot, r_cap, msg_src)
+
+    S_pre_rows = S_next[aff_c]
+    C_pre_rows = C_next[aff_c]
+
+    # ---- re-cover probe: candidate ties-or-beats the lost extremum -------
+    recovered = row_dim & (sign * cand_S >= sign * S_pre_rows)
+    need = row_dim & ~recovered & real_row[:, None]
+    n_recover = recovered.sum()
+    n_pairs = need.sum()
+    n_reagg = need.any(dim=1).sum()
+
+    # ---- surviving (row, dim) cells: re-derive from the in-CSR -----------
+    if pull == "rows":
+        row_need = need.any(dim=1)
+        degs = torch.where(row_need, in_csr.length[aff_c], 0)
+        psrc, _, fid, pvalid, pull_total = _ragged_gather(n, in_csr, aff_c,
+                                                          degs, p_cap)
+        overflow = overflow | (pull_total > p_cap)
+        pvals = _patched(n, H_pre, pos_p, patch[1], psrc)
+        S_sh, C_sh = segment_extremum(agg, pvals,
+                                      torch.where(pvalid, fid, r_cap),
+                                      r_cap, psrc)
+        MK = row_need[:, None].expand_as(S_pre_rows).contiguous()
+        RG = torch.where(MK, S_sh, 0.0)
+        base_C = torch.where(MK, C_sh, C_pre_rows)
+    elif pull == "pairs":
+        overflow = overflow | (n_pairs > pd_cap)
+        pr, pdim = _masked_pairs(need, pd_cap, r_cap)
+        rows_pair = aff_c[pr.clamp(max=r_cap - 1)]
+        degs = torch.where(pr < r_cap, in_csr.length[rows_pair], 0)
+        psrc, _, fid, pvalid, pull_total = _ragged_gather(n, in_csr,
+                                                          rows_pair, degs,
+                                                          p_cap)
+        overflow = overflow | (pull_total > p_cap)
+        pdim_e = pdim[fid]
+        psrc_c = psrc.clamp(max=n - 1)
+        pslot = pos_p[psrc_c]
+        pvals = torch.where(pslot >= 0,
+                            patch[1][pslot.clamp(min=0), pdim_e],
+                            H_pre[psrc_c, pdim_e])
+        S_pair, C_pair = segment_extremum(agg, pvals,
+                                          torch.where(pvalid, fid, pd_cap),
+                                          pd_cap, psrc)
+        MK = _scatter_cells(torch.zeros_like(need), pr, pdim, True)
+        RG = _scatter_cells(torch.zeros_like(S_pre_rows), pr, pdim, S_pair)
+        base_C = _scatter_cells(C_pre_rows, pr, pdim, C_pair)
+    else:
+        raise ValueError(f"pull must be 'pairs' or 'rows', not {pull!r}")
+
+    # ---- GROW: the candidate's witness where it wins the fold ------------
+    base_S = torch.where(MK, RG, S_pre_rows)
+    cand_wins = (sign * cand_S >= sign * base_S) & (cand_C >= 0)
+    C_new = torch.where(cand_wins, cand_C, base_C)
+
+    # ---- apply (fused select + fold + finite-mask + product) -------------
+    last = layer == workload.spec.n_layers - 1
+    maximize = sign > 0
+    if workload.family == "gc":
+        S_new, h_new = extremum_apply(S_pre_rows, cand_S, params_l["w"],
+                                      params_l["b"], reagg=RG, mask=MK,
+                                      maximize=maximize, relu=not last)
+    elif workload.family == "sage":
+        # fused neighbour term; the self term stays a plain matmul, added
+        # in the reference's order (the frontier filter compares bits)
+        S_new, h_new = extremum_apply(S_pre_rows, cand_S, params_l["w_nbr"],
+                                      params_l["b"], reagg=RG, mask=MK,
+                                      maximize=maximize, relu=False)
+        h_prev = _patched(n, H_pre, pos_p, patch[1], rec_idx)
+        h_new = h_new + h_prev @ params_l["w_self"]
+        if not last:
+            h_new = torch.relu(h_new)
+    else:
+        raise ValueError(f"no monotonic hop apply for the "
+                         f"{workload.family!r} family")
+
+    # ---- filtered propagation: only rows whose embedding changed ---------
+    changed = (h_new != state.H[layer + 1][aff_c]).any(dim=1) & real_row
+    frontier_next = torch.where(changed, rec_idx, n)
+    sizes = torch.stack([n_rec, needed, pull_total, n_pairs])
+    stats = torch.stack([n_shrink, n_reagg, n_pairs, n_recover])
+    return (rec_idx, S_new, C_new, h_new), frontier_next, overflow, sizes, \
+        stats
+
+
+@torch.no_grad()
+def propagate_monotonic(workload: Workload, n: int,
+                        caps: tuple[tuple[int, int, int, int], ...],
+                        params: list[dict], state: DeviceState,
+                        out_csr: DeviceCSR, in_csr: DeviceCSR,
+                        batch: BatchDev, *, pull: str, donate: bool = True):
+    """L-hop monotonic (max/min) propagation of a routed batch.
+
+    caps[l] = (row_cap, edge_cap, pull_cap, pair_cap) at hop l.  ``pull``
+    is the SHRINK re-derivation regime of :func:`_monotonic_hop`
+    (:class:`DeviceEngine` takes ``"pairs"`` on a card and ``"rows"`` on
+    the CPU unless told otherwise).  Returns
+    (new_state, report) where ``report`` is one int64 device vector
+    [overflow, sizes [L, 4] flattened, counters [4] (shrink_events,
+    rows_reaggregated, dims_reaggregated, recover_hits), final affected
+    idx]; reading it back is the batch's one wait for the device.  Same
+    two-phase gated commit of H, S, C and k as :func:`propagate`, so an
+    overflowing attempt commits nothing, in place or not.
+    """
+    L = workload.spec.n_layers
+
+    fv = batch.feat_idx
+    old = state.H[0][fv.clamp(max=n - 1)]
+    changed0 = (batch.feat_val != old).any(dim=1) & (fv < n)
+    frontier = torch.where(changed0, fv, n)  # hop-0 filter: no-op writes stop
+    patch = (fv, batch.feat_val)
+    overflow = torch.zeros((), dtype=torch.bool, device=fv.device)
+    stats = torch.zeros(4, dtype=torch.int64, device=fv.device)
+    hops = []
+    sizes = []
+    for l in range(L):
+        r_cap, e_cap, p_cap, pd_cap = caps[l]
+        hop_patch, frontier, ovf, hop_sizes, hop_stats = _monotonic_hop(
+            workload, params[l], l, n, state, out_csr, in_csr, batch,
+            frontier, patch, r_cap=r_cap, e_cap=e_cap, p_cap=p_cap,
+            pd_cap=pd_cap, pull=pull)
+        overflow = overflow | ovf
+        stats = stats + hop_stats
+        hops.append(hop_patch)
+        sizes.append(hop_sizes)
+        patch = (hop_patch[0], hop_patch[3])
+
+    # ---- phase 2: overflow-gated commit (dropped writes hit row n) -------
+    if not donate:
+        state = state.clone()
+    ok = ~overflow
+
+    def gate(idx: torch.Tensor) -> torch.Tensor:
+        return torch.where(ok, idx, n)
+
+    state.H[0].index_copy_(0, gate(fv), batch.feat_val)
+    for l, (rec, S_new, C_new, h_new) in enumerate(hops):
+        state.S[l + 1].index_copy_(0, gate(rec), S_new)
+        state.C[l + 1].index_copy_(0, gate(rec), C_new)
+        state.H[l + 1].index_copy_(0, gate(rec), h_new)
+    ones = torch.ones_like(batch.add_w)
+    state.k.index_add_(0, gate(batch.add_dst), ones)
+    state.k.index_add_(0, gate(batch.del_dst), -ones)
+    report = torch.cat([overflow.view(1).to(torch.int64),
+                        torch.stack(sizes).flatten(), stats,
+                        torch.where(ok, frontier, n)])
+    return state, report
+
+
 class DeviceEngine:
     """Host-side engine around the device propagation, with a warm bucket
     ladder.
@@ -457,6 +741,13 @@ class DeviceEngine:
     survived), then dispatches t and returns the *previous* batch's
     affected ids; ``flush()`` drains the pipeline.
 
+    Monotonic workloads (max/min) also mirror the in-adjacency, carry the
+    contributor refs ``C`` on the device, and report per batch the
+    ``last_shrink_events`` / ``last_rows_reaggregated`` /
+    ``last_dims_reaggregated`` / ``last_recover_hits`` counters; ``pull``
+    picks their SHRINK re-derivation regime (see
+    :func:`propagate_monotonic`; None: pairs on a card, rows on the CPU).
+
     ``use_pallas`` is accepted so engine options move across from the JAX
     package, and is inert: the hop apply always runs through the fused
     kernels.  ``tolerance`` belongs to the bounded family; > 0 raises.
@@ -467,7 +758,7 @@ class DeviceEngine:
                  min_bucket: int = 64, donate: bool = True,
                  use_pallas: bool = False, async_dispatch: bool = False,
                  debug_checks: bool = False, warm: bool = True,
-                 tolerance: float = 0.0):
+                 tolerance: float = 0.0, pull: str | None = None):
         if float(tolerance) > 0:
             raise ValueError(
                 f"tolerance > 0 requires a bounded-recompute workload; "
@@ -484,23 +775,41 @@ class DeviceEngine:
                     for p in self.params]
         self.graph = graph
         self.n = graph.n
+        self.monotonic = workload.agg.algebra == "monotonic"
         self.state = DeviceState(
             H=tuple(_with_trash_row(h, self.device) for h in state_np.H),
             S=(_upload(state_np.S[0], self.device),)
             + tuple(_with_trash_row(s, self.device) for s in state_np.S[1:]),
-            k=_with_trash_row(graph.in_degree, self.device))
+            k=_with_trash_row(graph.in_degree, self.device),
+            C=(_upload(state_np.C[0], self.device),)
+            + tuple(_with_trash_row(c, self.device, fill=-1)
+                    for c in state_np.C[1:]) if self.monotonic else ())
         self.min_bucket = min_bucket
         self.donate = donate
         self.async_dispatch = async_dispatch
         self.debug_checks = debug_checks
+        if pull is None:
+            pull = "pairs" if self.device.type == "cuda" else "rows"
+        self.pull = pull
         self.out_mirror = DeviceCSRMirror(graph.out, device=self.device)
+        self.in_mirror = DeviceCSRMirror(graph.inn, device=self.device) \
+            if self.monotonic else None
         self._bucket = min_bucket
         self._rung = 0          # transient retry boost (0 once sizes known)
         self._hw = None         # per-hop high-water marks: [L, 3] (r, e, 0)
+        #                         invertible, [L, 4] (r, e, p, pd) monotonic
         self._notes = 0         # high-water adoptions (settle-phase counter)
         self.retries = 0        # overflow retries across the stream
         self._pending = None    # (report, batch, caps, k_check)
         self._last_affected = np.empty(0, dtype=np.int64)
+        self.last_shrink_events = 0
+        self.last_rows_reaggregated = 0
+        self.last_dims_reaggregated = 0
+        self.last_recover_hits = 0
+        # per-hop needed sizes summed over committed batches (the last
+        # hop's recipients against the affected ids give the share of rows
+        # the frontier filter passed)
+        self.sizes_total = None
         if warm:
             self._warm()
 
@@ -521,21 +830,36 @@ class DeviceEngine:
         e_max = nb(max(self.graph.num_edges, 1)) * 2
         n_b = nb(self.n)
         L = self.workload.spec.n_layers
+        # per-dim shrink channels: pairs are bounded by every dim of every
+        # row re-aggregating, pulled elements by every edge read once per
+        # dim -- both ceilings must exceed e_max or a batch whose pull
+        # volume tops the edge count can never fit and the ladder spins.
+        # They are ceilings of the ladder, never allocated as such.
+        max_d = nb(max(self.workload.spec.dims))
+        pd_max = n_b * max_d
+        p_max = e_max * max_d
         scale = 4 ** rung
+        caps = []
         if self._hw is not None:
-            caps = []
             for l in range(L):
                 chans = [max(int(v * self._HEADROOM), 1) * scale
                          for v in self._hw[l]]
-                caps.append((min(nb(chans[0], minimum=self.min_bucket), n_b),
-                             min(nb(chans[1], minimum=self.min_bucket),
-                                 e_max)))
+                cap_l = (min(nb(chans[0], minimum=self.min_bucket), n_b),
+                         min(nb(chans[1], minimum=self.min_bucket), e_max))
+                if self.monotonic:
+                    cap_l += (min(nb(chans[2], minimum=self.min_bucket),
+                                  p_max),
+                              min(nb(chans[3], minimum=self.min_bucket),
+                                  pd_max))
+                caps.append(cap_l)
             return tuple(caps)
         r = min(nb(self._bucket * scale, minimum=self._bucket), n_b)
         e = min(nb(4 * r), e_max)
-        caps = []
         for _ in range(L):
-            caps.append((r, e))
+            if self.monotonic:
+                caps.append((r, e, min(e, p_max), min(e, pd_max)))
+            else:
+                caps.append((r, e))
             r = min(nb(r * 4), n_b)
             e = min(nb(e * 4), e_max)
         return tuple(caps)
@@ -625,10 +949,18 @@ class DeviceEngine:
         touched = adds + dels
         out_rows = np.unique(np.array([e.src for e in touched], np.int64)) \
             if touched else np.empty(0, np.int64)
-        return dev_batch, out_rows
+        in_rows = np.unique(np.array([e.dst for e in touched], np.int64)) \
+            if touched and self.in_mirror is not None \
+            else np.empty(0, np.int64)
+        return dev_batch, out_rows, in_rows
 
     # -- dispatch / resolve ------------------------------------------------
     def _run(self, dev_batch: BatchDev, caps: tuple):
+        if self.monotonic:
+            return propagate_monotonic(
+                self.workload, self.n, caps, self.params, self.state,
+                self.out_mirror.csr(), self.in_mirror.csr(), dev_batch,
+                donate=self.donate, pull=self.pull)
         return propagate(self.workload, self.n, caps, self.params, self.eps,
                          self.state, self.out_mirror.csr(), dev_batch,
                          donate=self.donate)
@@ -645,11 +977,16 @@ class DeviceEngine:
         self._pending = (report, dev_batch, caps, k_check)
 
     def _read(self, report: torch.Tensor):
-        """(overflow, sizes [L, 3], final ids) from one device report --
-        the batch's single wait for the device."""
+        """(overflow, sizes [L, channels], counters [4] or None, final ids)
+        from one device report -- the batch's single wait for the device."""
         L = self.workload.spec.n_layers
         rep = report.cpu().numpy()
-        return bool(rep[0]), rep[1:1 + 3 * L].reshape(L, 3), rep[1 + 3 * L:]
+        ch = 4 if self.monotonic else 3
+        end = 1 + ch * L
+        sizes = rep[1:end].reshape(L, ch)
+        if not self.monotonic:
+            return bool(rep[0]), sizes, None, rep[end:]
+        return bool(rep[0]), sizes, rep[end:end + 4], rep[end + 4:]
 
     def _resolve(self) -> np.ndarray:
         """Check the in-flight batch's overflow flag, retrying it with
@@ -657,7 +994,7 @@ class DeviceEngine:
         if self._pending is None:
             return self._last_affected
         report, dev_batch, caps, k_check = self._pending
-        overflow, sizes, final = self._read(report)
+        overflow, sizes, stats, final = self._read(report)
         while overflow:
             self.retries += 1
             # the failed attempt reported what it actually needed; aim the
@@ -679,10 +1016,16 @@ class DeviceEngine:
                 self._rung = 0
             self.state, report = self._run(dev_batch, new_caps)
             caps = new_caps
-            overflow, sizes, final = self._read(report)
+            overflow, sizes, stats, final = self._read(report)
         self._note_sizes(sizes)
         self._rung = 0
         self._last_affected = final[final < self.n].astype(np.int64)
+        self.sizes_total = sizes if self.sizes_total is None \
+            else self.sizes_total + sizes
+        if stats is not None:
+            (self.last_shrink_events, self.last_rows_reaggregated,
+             self.last_dims_reaggregated, self.last_recover_hits) = \
+                (int(v) for v in stats)
         if k_check is not None:
             np.testing.assert_allclose(
                 self.state.k[:self.n].cpu().numpy(), k_check,
@@ -699,9 +1042,11 @@ class DeviceEngine:
         the return value is the *previous* batch's affected ids (one batch
         of pipeline latency; ``flush()`` drains exactly).
         """
-        dev_batch, out_rows = self._route(batch)
+        dev_batch, out_rows, in_rows = self._route(batch)
         prev_affected = self._resolve()
         self.out_mirror.refresh_rows(out_rows)
+        if self.in_mirror is not None:
+            self.in_mirror.refresh_rows(in_rows)
         self._dispatch(dev_batch)
         if self.async_dispatch:
             return prev_affected

@@ -1,10 +1,10 @@
 """Full layer-wise GNN inference (bootstrap + correctness oracle).
 
 The static-graph baseline (paper §2.1): each layer aggregates over *all*
-edges with one segment-sum and applies the UPDATE to *all* vertices.  It
-bootstraps the engine state (H^0..H^L, S^1..S^L) before streaming updates
-arrive, and serves as the exact oracle for the incremental engines.  It
-runs on the device that ``x`` lies on.
+edges with one segment reduction and applies the UPDATE to *all* vertices.
+It bootstraps the engine state (H^0..H^L, S^1..S^L) before streaming
+updates arrive, and serves as the exact oracle for the incremental
+engines.  It runs on the device that ``x`` lies on.
 """
 from __future__ import annotations
 
@@ -16,7 +16,17 @@ from .workloads import Workload
 
 def aggregate_all(workload: Workload, h: torch.Tensor, src: torch.Tensor,
                   dst: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
-    """Segment-sum of w_uv * h[u] over all edges (the invertible family)."""
+    """One segment reduction over all edges, per the workload's aggregator:
+    segment-sum of w_uv * h[u] for the invertible family, segment-max/min
+    of h[u] for the monotonic family (empty rows hold the aggregator
+    identity, +/-inf)."""
+    agg = workload.agg
+    if agg.algebra == "monotonic":
+        out = torch.full((n, h.shape[1]), agg.identity, dtype=h.dtype,
+                         device=h.device)
+        lanes = dst[:, None].expand(-1, h.shape[1])
+        return out.scatter_reduce_(0, lanes, h[src],
+                                   "amax" if agg.sign > 0 else "amin")
     msgs = h[src] * w[:, None]
     return torch.zeros((n, h.shape[1]), dtype=h.dtype,
                        device=h.device).index_add_(0, dst, msgs)

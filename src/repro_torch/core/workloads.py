@@ -1,19 +1,23 @@
-"""The GNN inference workloads: the paper's five invertible ones (§7.1.1).
+"""The GNN inference workloads: the paper's five invertible ones (§7.1.1)
+and the two monotonic ones (max/min).
 
 GC-S   GraphConv + sum            h^l = relu(W_l x^l + b_l)
 GS-S   GraphSAGE + sum            h^l = relu(W_self h^{l-1} + W_nbr x^l + b_l)
 GC-M   GraphConv + mean           x^l = S^l / k
 GI-S   GINConv + sum              h^l = MLP_l((1+eps) h^{l-1} + x^l)
 GC-W   GraphConv + weighted sum   x^l = sum_j alpha_ij h_j
+GS-MAX GraphSAGE + max            x^l = max_j h_j (per dim)
+GC-MIN GraphConv + min            x^l = min_j h_j (per dim)
 
 where S^l is the *unnormalized* aggregate of h^{l-1} over in-neighbors and
 x^l its normalized form.  Storing (S, k) instead of x keeps ``mean`` exact
-under in-degree changes from streaming topology updates.
+under in-degree changes from streaming topology updates; for max/min, S^l
+is the tracked extremum and an empty row reads as 0.
 
 Each family's UPDATE is an ``nn.Module`` whose parameter names equal the
 reference's parameter-dict keys, so weights made by either package load
 into the other (:func:`params_from_numpy`).  ``WORKLOAD_NAMES`` keeps all
-nine names of the reference; the four non-invertible ones raise at
+nine names of the reference; the two bounded ones (ga-s, gp-m) raise at
 :func:`make_workload` until their family is ported.
 """
 from __future__ import annotations
@@ -89,7 +93,7 @@ class WorkloadSpec:
     """A GNN inference workload: model family x aggregation function."""
 
     name: str
-    aggregator: str  # "sum" | "mean" | "wsum"
+    aggregator: str  # "sum" | "mean" | "wsum" | "max" | "min"
     self_dependent: bool  # does h^l read h^{l-1}_self directly?
     n_layers: int
     dims: tuple[int, ...]  # (d0, d1, ..., dL)
@@ -173,7 +177,8 @@ _WORKLOAD_TABLE = {
 def make_workload(name: str, n_layers: int = 2, d_in: int = 32,
                   d_hidden: int = 32, n_classes: int = 8) -> Workload:
     """Factory for the paper's five invertible workloads (gc-s, gs-s, gc-m,
-    gi-s, gc-w); the other reference names raise ``NotImplementedError``."""
+    gi-s, gc-w) and the two monotonic ones (gs-max, gc-min); the bounded
+    names (ga-s, gp-m) raise ``NotImplementedError``."""
     name = name.lower()
     family, agg = _WORKLOAD_TABLE[name]
     get_aggregator(agg)  # raises for the families not ported yet
@@ -186,3 +191,4 @@ def make_workload(name: str, n_layers: int = 2, d_in: int = 32,
 
 WORKLOAD_NAMES = tuple(_WORKLOAD_TABLE)
 INVERTIBLE_WORKLOAD_NAMES = ("gc-s", "gs-s", "gc-m", "gi-s", "gc-w")
+MONOTONIC_WORKLOAD_NAMES = ("gs-max", "gc-min")

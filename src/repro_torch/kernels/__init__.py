@@ -8,4 +8,7 @@ with ``nvcc`` at first use.
 
     delta_apply  fused invertible hop apply: S' = S + M; h = act(norm(S')W + b)
     mlp_apply    fused GIN hop apply: fold + z-term + two chained products
+    extremum_apply  fused monotonic hop apply: masked select, max/min fold,
+                 finite-mask, product: S' = max|min(base, M);
+                 h = act(finite(S')W + b)
 """

@@ -7,12 +7,17 @@ registry.  Runs on the card unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.stream --engine device \
         --workload gc-s --n 2000 --updates 3000 --batch-size 100
+
+``--workload`` takes the five invertible workloads and the monotonic
+``gs-max`` / ``gc-min``.
 """
 from __future__ import annotations
 
 import argparse
 
 from repro_torch.api import InferenceSession, SessionConfig, engine_names
+from repro_torch.core.workloads import (INVERTIBLE_WORKLOAD_NAMES,
+                                        MONOTONIC_WORKLOAD_NAMES)
 
 
 def build(args) -> InferenceSession:
@@ -25,7 +30,9 @@ def build(args) -> InferenceSession:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", default="gc-s")
+    ap.add_argument("--workload", default="gc-s",
+                    choices=INVERTIBLE_WORKLOAD_NAMES
+                    + MONOTONIC_WORKLOAD_NAMES)
     ap.add_argument("--engine", choices=engine_names(), default="device")
     ap.add_argument("--graph", choices=["er", "powerlaw"], default="powerlaw")
     ap.add_argument("--n", type=int, default=2000)

@@ -205,7 +205,7 @@ def test_overflow_commits_nothing(donate):
     place or not -- the gated-commit contract behind the ladder retry."""
     eng = _engine("gc-s", n=64, m=700, warm=False)
     rng = np.random.default_rng(0)
-    dev_batch, _ = eng._route(tgraph.UpdateBatch(features=[
+    dev_batch, _, _ = eng._route(tgraph.UpdateBatch(features=[
         tgraph.FeatureUpdate(int(v), rng.normal(size=8).astype(np.float32))
         for v in rng.choice(eng.n, size=16, replace=False)]))
     before = eng.state.clone()
@@ -213,7 +213,7 @@ def test_overflow_commits_nothing(donate):
                                   eng.params, eng.eps, eng.state,
                                   eng.out_mirror.csr(), dev_batch,
                                   donate=donate)
-    overflow, _, final = eng._read(report)
+    overflow, _, _, final = eng._read(report)
     assert overflow
     for a, b in zip(new_state.H + new_state.S, before.H + before.S):
         torch.testing.assert_close(a[:eng.n], b[:eng.n], rtol=0, atol=0)

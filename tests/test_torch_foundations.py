@@ -114,10 +114,10 @@ def test_params_round_trip(name):
 def test_unported_workloads_and_aggregators_raise():
     from repro_torch.core.aggregators import get_aggregator
     assert len(WORKLOAD_NAMES) == 9
-    for name in ("gs-max", "gc-min", "ga-s", "gp-m"):
+    for name in ("ga-s", "gp-m"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             t_make_workload(name)
-    for agg in ("max", "min", "attn", "topk", "pna"):
+    for agg in ("attn", "topk", "pna"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_aggregator(agg)
     with pytest.raises(KeyError):
@@ -148,6 +148,7 @@ import sys
 sys.modules["jax"] = None
 import repro_torch, repro_torch.api, repro_torch.launch.stream
 import repro_torch.kernels.delta_apply, repro_torch.kernels.mlp_apply
+import repro_torch.kernels.extremum_apply
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m in ("jax", "repro") or m.startswith(("jax.", "repro.")))]
 assert not bad, bad

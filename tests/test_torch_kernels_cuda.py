@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on a card,
 at the shapes of tests/test_kernels.py plus a main-path shape, with its
-bars (1e-5 on S', 1e-4 on h).  Imports no JAX, so it runs where only
+bars (1e-5 on S', 1e-4 on h; extremum_apply's S' bit-equal).  Imports no JAX, so it runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.kernels.delta_apply import delta_apply
 from repro_torch.kernels.delta_apply.ref import delta_apply_ref
+from repro_torch.kernels.extremum_apply import extremum_apply
+from repro_torch.kernels.extremum_apply.ref import extremum_apply_ref
 from repro_torch.kernels.mlp_apply import mlp_apply
 from repro_torch.kernels.mlp_apply.ref import mlp_apply_ref
 
@@ -82,3 +84,38 @@ def test_mlp_apply_refuses_widths_beyond_shared_memory(cuda):
     b1 = torch.zeros(Dh, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         mlp_apply(z, z, z, k, 0.0, W1, b1, W1, b1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,Din,Dout", [(64, 32, 16), (128, 128, 128),
+                                        (33, 48, 7), (256, 64, 200),
+                                        (4096, 128, 40)])
+@pytest.mark.parametrize("maximize", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_extremum_apply_kernel_on_card(cuda, R, Din, Dout, maximize, masked):
+    """Identity (+/-inf) rows in S and M, as tests/test_kernels.py puts
+    them; S' must be bit-equal to the plain version."""
+    rng = np.random.default_rng(0)
+    ident = -np.inf if maximize else np.inf
+    S, M = _rand(rng, R, Din), _rand(rng, R, Din)
+    S[rng.choice(R, size=max(R // 8, 1), replace=False)] = ident
+    M[rng.choice(R, size=max(R // 4, 1), replace=False)] = ident
+    W, b = _rand(rng, Din, Dout), _rand(rng, Dout)
+    args = [torch.as_tensor(a, device=cuda) for a in (S, M, W, b)]
+    kw = {}
+    if masked:
+        mask = rng.random((R, Din)) < 0.07
+        RG = _rand(rng, R, Din) * mask
+        kw = dict(reagg=torch.as_tensor(RG, device=cuda),
+                  mask=torch.as_tensor(mask, device=cuda))
+    before = extremum_apply.launches
+    Sk, hk = extremum_apply(*args, **kw, maximize=maximize, relu=True)
+    Sr, hr = extremum_apply_ref(*args, **kw, maximize=maximize, relu=True)
+    torch.cuda.synchronize()
+    assert extremum_apply.launches == before + 1
+    assert torch.equal(Sk, Sr)
+    torch.testing.assert_close(hk, hr, **H_TOL)
+    if masked:   # the reference's fp32 mask form gives the same result
+        kw["mask"] = kw["mask"].to(torch.float32)
+        Sf, hf = extremum_apply(*args, **kw, maximize=maximize, relu=True)
+        assert torch.equal(Sf, Sk) and torch.equal(hf, hk)
