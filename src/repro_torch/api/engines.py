@@ -24,9 +24,9 @@ import torch
 
 from repro_torch.core.aggregators import compute_contributors
 from repro_torch.core.device_engine import DeviceEngine
-from repro_torch.core.full import full_inference
+from repro_torch.core.full import bounded_aux, full_inference
 from repro_torch.core.graph import DynamicGraph, UpdateBatch
-from repro_torch.core.state import InferenceState, _to_numpy
+from repro_torch.core.state import InferenceState, _to_numpy, aux_to_numpy
 from repro_torch.core.workloads import Workload
 from repro_torch.utils import resolve_device
 
@@ -45,13 +45,17 @@ def _materialize_state(workload: Workload, params: list, graph: DynamicGraph,
     ``device``, written into ``state`` in place (exact, the oracle's
     output)."""
     x = torch.as_tensor(state.H[0], device=resolve_device(device))
-    H, S = full_inference(workload, params, x, *graph.coo(),
-                          graph.in_degree)
+    src, dst, w = graph.coo()
+    H, S = full_inference(workload, params, x, src, dst, w, graph.in_degree)
     state.H = [_to_numpy(h) for h in H]
     state.S = [_to_numpy(s) for s in S]
     state.k = graph.in_degree.copy()
     if workload.agg.algebra == "monotonic":
         state.C = compute_contributors(workload.agg, state.H, state.S, graph)
+    if workload.agg.tracks_aux:
+        state.A = aux_to_numpy(bounded_aux(workload, H, src, dst))
+        # the pass above is exact: no deferred staleness survives it
+        state.eps = np.zeros(workload.spec.n_layers + 1, dtype=np.float32)
     return state
 
 
@@ -64,9 +68,9 @@ _DEVICE_OPTIONS = (
     _DEVICE_OPTION,
     EngineOption("min_bucket", 64, "smallest static buffer capacity"),
     EngineOption("donate", True,
-                 "update the H/S/C/k device tensors in place through the gated "
-                 "commit (disable for A/B equivalence checks against the "
-                 "copying path)"),
+                 "update the H/S/C/A/k device tensors in place through the "
+                 "gated commit (disable for A/B equivalence checks against "
+                 "the copying path)"),
     EngineOption("use_pallas", False,
                  "accepted so engine options move across from the JAX "
                  "package, and inert: the hop apply always runs through the "
@@ -84,9 +88,11 @@ _DEVICE_OPTIONS = (
                  "run the rung-0 cap schedule once at construction on a "
                  "sentinel no-op batch"),
     EngineOption("tolerance", 0.0,
-                 "bounded-family approximate mode; the invertible and "
-                 "monotonic workloads ported here are exact, so any value "
-                 "> 0 raises"),
+                 "bounded-family approximate mode: interior-layer writes "
+                 "within the certified deferral budget are skipped so the "
+                 "published error stays <= tolerance (error_bound() gives "
+                 "the certified bound); > 0 raises for the invertible and "
+                 "monotonic workloads"),
 )
 
 
@@ -127,7 +133,16 @@ class DeviceAdapter:
                             shrink_events=impl.last_shrink_events,
                             rows_reaggregated=impl.last_rows_reaggregated,
                             dims_reaggregated=impl.last_dims_reaggregated,
-                            recover_hits=impl.last_recover_hits)
+                            recover_hits=impl.last_recover_hits,
+                            patch_events=impl.last_patch_events,
+                            bound_violations=impl.last_bound_violations,
+                            deferred_rows=impl.last_deferred_rows)
+
+    def error_bound(self) -> np.ndarray:
+        """Certified per-vertex error bound (bounded workloads; drains the
+        async pipeline so the high-water epsilons are current)."""
+        self._impl.flush()
+        return self._impl.error_bound()
 
     def flush(self) -> None:
         """Drain the async pipeline (no-op when synchronous)."""
@@ -153,6 +168,12 @@ class DeviceAdapter:
         if self._host.C is not None:
             for c_host, c_dev in zip(self._host.C[1:], dev.C[1:]):
                 c_host[...] = c_dev[:n].cpu().numpy()
+        if self._host.A is not None:
+            names = self._impl.workload.agg.aux_names
+            for a_host, a_dev in zip(self._host.A[1:], dev.A[1:]):
+                for nm, t in zip(names, a_dev):
+                    a_host[nm][...] = t[:n].cpu().numpy()
+            self._host.eps[...] = self._impl._eps
         return self._host
 
     @property
@@ -197,6 +218,10 @@ class FullRecomputeAdapter:
                             wall_seconds=time.perf_counter() - t0,
                             numeric_ops=2 * self.graph.num_edges
                             * self.workload.spec.n_layers)
+
+    def error_bound(self) -> np.ndarray:
+        """Every batch is recomputed exactly: the bound is zero."""
+        return np.zeros(self.graph.n, dtype=np.float32)
 
     def sync(self) -> InferenceState:
         return self._state

@@ -1,2 +1,2 @@
 """Graph store, aggregator algebra, workloads, oracle, state and the
-device engine (invertible family)."""
+device engine."""

@@ -1,4 +1,5 @@
-"""Aggregator algebra behind RIPPLE: the invertible and monotonic families.
+"""Aggregator algebra behind RIPPLE: the invertible, monotonic and bounded
+families.
 
 **Invertible aggregators** (``sum`` / ``mean`` / ``wsum``).  The aggregate
 lives in a group: a contribution can be *retracted* by adding its inverse,
@@ -29,9 +30,16 @@ Every incoming message is classified per ``(row, dim)``:
 The invariant behind the classification: after every batch
 ``S[l+1][v, d] == H[l][C[l+1][v, d], d]`` for every non-empty cell.
 
-The bounded-recompute family (attn/topk/pna) is not ported yet:
-:func:`get_aggregator` raises ``NotImplementedError`` for it, naming the
-ROADMAP.md item where it lands.
+**Bounded-recompute aggregators** (``attn`` / ``topk`` / ``pna``).  Neither
+invertible nor monotonic: softmax attention, top-k and PNA towers reweight
+or re-rank a whole neighbourhood per update.  Each vertex caches partial
+state in ``A`` (a softmax normalizer + max-logit anchor, the k-th-value
+threshold, or running moments with a tracked max), ``S`` stores the
+*normalized* aggregate directly (``normalize`` is the identity), and the
+device engine re-aggregates every affected row over its in-neighbourhood
+with :meth:`BoundedRecomputeAgg.reaggregate`.  With ``tolerance > 0`` an
+interior-layer write within the certified deferral budget may be skipped;
+:func:`certified_error_bound` bounds the published error.
 """
 from __future__ import annotations
 
@@ -51,6 +59,17 @@ class Aggregator:
     def algebra(self) -> str:
         """Which of the three families: invertible | monotonic | bounded."""
         return "invertible"
+
+    @property
+    def tracks_aux(self) -> bool:
+        """Does state need per-vertex cached partial state (``A``)?"""
+        return False
+
+    @property
+    def x_multiplier(self) -> int:
+        """Width of the normalized aggregate relative to the input dim
+        (PNA's tower concatenates several aggregations per dim)."""
+        return 1
 
     @property
     def weighted(self) -> bool:
@@ -112,31 +131,324 @@ class MonotonicAgg(Aggregator):
         return torch.where(torch.isfinite(S), S, 0.0)
 
 
+def _segment_max(vals: torch.Tensor, seg: torch.Tensor,
+                 n_rows: int) -> torch.Tensor:
+    """Segment max of ``vals [E]`` or ``[E, d]`` into ``n_rows`` rows
+    (-inf in empty rows); ``seg == n_rows`` lanes land in a trash row."""
+    lanes = seg if vals.dim() == 1 else seg[:, None].expand_as(vals)
+    out = torch.full((n_rows + 1,) + tuple(vals.shape[1:]), -np.inf,
+                     dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(0, lanes, vals, "amax")[:n_rows]
+
+
+def segment_sum(vals: torch.Tensor, seg: torch.Tensor,
+                n_rows: int) -> torch.Tensor:
+    """Rows of ``vals`` summed by segment id into ``n_rows`` rows
+    (``seg == n_rows`` lanes land in a trash row).  On a card the atomics
+    make the order of the sum vary from run to run."""
+    out = torch.zeros((n_rows + 1,) + tuple(vals.shape[1:]),
+                      dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, seg, vals)[:n_rows]
+
+
+def _np_topk_passes(vals: np.ndarray, seg: np.ndarray, n_rows: int,
+                    kk: int) -> tuple[np.ndarray, np.ndarray]:
+    """k passes of masked segment-max with single-winner deactivation.
+
+    ``vals [E, d]`` grouped by ``seg [E]``.  Pass p finds each (row, dim)'s
+    current maximum, deactivates exactly one witnessing edge (segment-min of
+    edge index among the ties), and accumulates the value.  Returns
+    ``(x [n_rows, d], theta [n_rows, d])`` where x sums the top-min(kk, deg)
+    values per dim and theta is the kk-th largest (-inf when deg < kk)."""
+    E, d = vals.shape
+    active = np.ones((E, d), dtype=bool)
+    xsum = np.zeros((n_rows, d), dtype=np.float32)
+    theta = np.full((n_rows, d), -np.inf, dtype=np.float32)
+    eidx = np.broadcast_to(np.arange(E, dtype=np.int64)[:, None], (E, d))
+    for _ in range(kk):
+        cur = np.where(active, vals, -np.inf)
+        M = np.full((n_rows, d), -np.inf, dtype=np.float32)
+        np.maximum.at(M, seg, cur)
+        Mrow = M[seg] if E else M[:0]
+        cand = active & (cur == Mrow) & np.isfinite(Mrow)
+        widx = np.full((n_rows, d), E, dtype=np.int64)
+        np.minimum.at(widx, seg, np.where(cand, eidx, E))
+        win = cand & (eidx == widx[seg]) if E else cand
+        xsum += np.where(np.isfinite(M), M, 0.0)
+        theta = M
+        active &= ~win
+    return xsum, theta
+
+
+def topk_passes(vals: torch.Tensor, seg: torch.Tensor, n_rows: int,
+                kk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Torch half of :func:`_np_topk_passes` on the tensors' device;
+    ``seg == n_rows`` marks padding lanes (they never win a pass)."""
+    E, d = vals.shape
+    dev = vals.device
+    active = (seg < n_rows)[:, None].expand(E, d)
+    eidx = torch.arange(E, device=dev)[:, None].expand(E, d)
+    lanes = seg[:, None].expand(E, d)
+    row = seg.clamp(max=n_rows - 1)
+    xsum = torch.zeros((n_rows, d), dtype=vals.dtype, device=dev)
+    theta = torch.full((n_rows, d), -np.inf, dtype=vals.dtype, device=dev)
+    for _ in range(kk):
+        cur = torch.where(active, vals, -np.inf)
+        M = _segment_max(cur, seg, n_rows)
+        Mrow = M[row]
+        cand = active & (cur == Mrow) & torch.isfinite(Mrow)
+        widx = torch.full((n_rows + 1, d), E, dtype=torch.int64, device=dev)
+        widx = widx.scatter_reduce_(0, lanes, torch.where(cand, eidx, E),
+                                    "amin")[:n_rows]
+        win = cand & (eidx == widx[row])
+        xsum = xsum + torch.where(torch.isfinite(M), M, 0.0)
+        theta = M
+        active = active & ~win
+    return xsum, theta
+
+
+@dataclass(frozen=True)
+class BoundedRecomputeAgg(Aggregator):
+    """Neither invertible nor monotonic: the third algebra family.
+
+    Softmax attention, top-k and PNA towers reweight or re-rank a whole
+    neighbourhood per update.  Incremental cost stays frontier-proportional
+    by caching per-vertex partial state (``InferenceState.A``) and
+    re-aggregating only the rows an update touches; the device engine
+    re-aggregates every such row (refresh-all), the host engines classify
+    each into an O(1) PATCH or a REFRESH (not ported yet).
+
+    Contract notes: ``S`` stores the *normalized* aggregate x directly
+    (``normalize`` is the identity); ``x_multiplier`` widens the UPDATE's
+    neighbour input (PNA's tower is 3 dims per input dim)."""
+
+    @property
+    def algebra(self) -> str:
+        return "bounded"
+
+    @property
+    def tracks_aux(self) -> bool:
+        return True
+
+    @property
+    def aux_names(self) -> tuple[str, ...]:
+        raise NotImplementedError
+
+    def init_aux(self, n: int, d: int) -> dict[str, np.ndarray]:
+        """Empty-row aux arrays (the values a row with no in-neighbours
+        holds)."""
+        raise NotImplementedError
+
+    def np_reaggregate(self, H_prev, nbr, seg, n_rows, k_rows):
+        """Re-aggregate rows from scratch on the host: ``nbr [E]``
+        in-neighbour ids grouped by ``seg [E]`` into ``n_rows`` rows with
+        in-degrees ``k_rows``.  Returns ``(x [n_rows, d * x_multiplier],
+        aux dict)``."""
+        raise NotImplementedError
+
+    def reaggregate(self, vals: torch.Tensor, src: torch.Tensor,
+                    seg: torch.Tensor, n_rows: int, k_rows: torch.Tensor):
+        """Torch half of :meth:`np_reaggregate` on the tensors' device:
+        ``vals [E, d]`` are already-gathered source embeddings with ids
+        ``src [E]``; ``seg == n_rows`` marks padding lanes.  Returns
+        ``(x [n_rows, d * x_multiplier], aux tuple in aux_names order)``."""
+        raise NotImplementedError
+
+    def gain(self, D: float, d: int, kmax: float, M: float) -> float:
+        """Certified aggregation gain G(D): a bound on ``|x' - x|_inf``
+        when every in-neighbour embedding moves by at most D in inf-norm
+        (``d`` input dim, ``kmax`` max in-degree, ``M`` max |H| bound)."""
+        raise NotImplementedError
+
+
+@dataclass(frozen=True)
+class AttentionAgg(BoundedRecomputeAgg):
+    """Softmax attention over in-neighbours (GAT-style, fixed scoring head):
+    ``x_v = sum_u softmax_u(logit(h_u)) * h_u`` with
+    ``logit(h) = sum(h)/sqrt(d)``.  Cache per row: the max-logit anchor
+    ``m`` and the normalizer ``z = sum exp(logit - m)``."""
+
+    zmin: float = 1e-12          # absolute normalizer floor
+
+    @property
+    def aux_names(self) -> tuple[str, ...]:
+        return ("m", "z")
+
+    def init_aux(self, n, d):
+        return {"m": np.full(n, -np.inf, dtype=np.float32),
+                "z": np.zeros(n, dtype=np.float32)}
+
+    @staticmethod
+    def logits(vals):
+        return vals.sum(axis=-1) / np.float32(np.sqrt(vals.shape[-1]))
+
+    def np_reaggregate(self, H_prev, nbr, seg, n_rows, k_rows):
+        d = H_prev.shape[1]
+        vals = H_prev[nbr].astype(np.float32, copy=False)
+        lg = self.logits(vals)
+        m = np.full(n_rows, -np.inf, dtype=np.float32)
+        np.maximum.at(m, seg, lg)
+        x = np.zeros((n_rows, d), dtype=np.float32)
+        z = np.zeros(n_rows, dtype=np.float32)
+        if nbr.size:
+            e = np.exp(lg - m[seg])
+            np.add.at(z, seg, e)
+            np.add.at(x, seg, e[:, None] * vals)
+        nz = z > 0
+        x[nz] /= z[nz, None]
+        x[~nz] = 0.0
+        return x, {"m": m, "z": z}
+
+    def reaggregate(self, vals, src, seg, n_rows, k_rows):
+        d = vals.shape[1]
+        valid = seg < n_rows
+        row = seg.clamp(max=n_rows - 1)
+        lg = torch.where(valid,
+                         vals.sum(-1) / float(np.float32(np.sqrt(d))),
+                         -np.inf)
+        m = _segment_max(lg, seg, n_rows)
+        mf = torch.where(torch.isfinite(m), m, 0.0)
+        e = torch.where(valid, torch.exp(lg - mf[row]), 0.0)
+        z = segment_sum(e, seg, n_rows)
+        vc = torch.where(valid[:, None], vals, 0.0)
+        N = segment_sum(e[:, None] * vc, seg, n_rows)
+        x = torch.where((z > 0)[:, None],
+                        N / z.clamp(min=self.zmin)[:, None], 0.0)
+        return x, (m, z)
+
+    def gain(self, D, d, kmax, M):
+        if D <= 0:
+            return 0.0
+        # softmax weight total variation under a logit perturbation of
+        # delta = sqrt(d) * D is <= min(2, 2*(e^{2 delta} - 1))
+        tv = min(2.0, 2.0 * float(np.expm1(min(2.0 * np.sqrt(d) * D, 60.0))))
+        return D + tv * (M + D)
+
+
+@dataclass(frozen=True)
+class TopKAgg(BoundedRecomputeAgg):
+    """Per-dim sum of the top-k in-neighbour values.  Cache per (row, dim):
+    the admission threshold ``theta`` = current k-th largest value (-inf
+    when deg < k)."""
+
+    kk: int = 3
+
+    @property
+    def aux_names(self) -> tuple[str, ...]:
+        return ("theta",)
+
+    def init_aux(self, n, d):
+        return {"theta": np.full((n, d), -np.inf, dtype=np.float32)}
+
+    def np_reaggregate(self, H_prev, nbr, seg, n_rows, k_rows):
+        vals = H_prev[nbr].astype(np.float32, copy=False)
+        x, theta = _np_topk_passes(vals, seg, n_rows, self.kk)
+        return x, {"theta": theta}
+
+    def reaggregate(self, vals, src, seg, n_rows, k_rows):
+        x, theta = topk_passes(vals, seg, n_rows, self.kk)
+        return x, (theta,)
+
+    def gain(self, D, d, kmax, M):
+        # each of the kk order statistics is 1-Lipschitz in inf-norm
+        return self.kk * D
+
+
+@dataclass(frozen=True)
+class PNAAgg(BoundedRecomputeAgg):
+    """PNA tower (mean/std/max + degree scaler): per input dim the
+    normalized aggregate is ``[log1p(k)*mean, std, max]`` -- 3 dims per
+    input dim (``x_multiplier = 3``).  Cache per row: the moment sums
+    ``s1 = sum h`` and ``s2 = sum h^2`` and the per-dim max ``mx`` with its
+    witness ``mref`` (the largest in-neighbour id among ties)."""
+
+    @property
+    def x_multiplier(self) -> int:
+        return 3
+
+    @property
+    def aux_names(self) -> tuple[str, ...]:
+        return ("s1", "s2", "mx", "mref")
+
+    def init_aux(self, n, d):
+        return {"s1": np.zeros((n, d), dtype=np.float32),
+                "s2": np.zeros((n, d), dtype=np.float32),
+                "mx": np.full((n, d), -np.inf, dtype=np.float32),
+                "mref": np.full((n, d), -1, dtype=np.int32)}
+
+    @staticmethod
+    def np_tower(s1, s2, mx, k):
+        kk = np.maximum(k, 1.0)[:, None]
+        mean = s1 / kk
+        std = np.sqrt(np.maximum(s2 / kk - mean * mean, 0.0))
+        mxf = np.where(np.isfinite(mx), mx, 0.0)
+        scale = np.log1p(np.maximum(k, 0.0))[:, None]
+        return np.concatenate([scale * mean, std, mxf], axis=1)
+
+    @staticmethod
+    def tower(s1: torch.Tensor, s2: torch.Tensor, mx: torch.Tensor,
+              k: torch.Tensor) -> torch.Tensor:
+        """``[log1p(k) * mean, std, max]`` from the cached moments."""
+        kk = k.clamp(min=1.0)[:, None]
+        mean = s1 / kk
+        std = torch.sqrt((s2 / kk - mean * mean).clamp(min=0.0))
+        mxf = torch.where(torch.isfinite(mx), mx, 0.0)
+        scale = torch.log1p(k.clamp(min=0.0))[:, None]
+        return torch.cat([scale * mean, std, mxf], dim=1)
+
+    def np_reaggregate(self, H_prev, nbr, seg, n_rows, k_rows):
+        d = H_prev.shape[1]
+        vals = H_prev[nbr].astype(np.float32, copy=False)
+        s1 = np.zeros((n_rows, d), dtype=np.float32)
+        s2 = np.zeros((n_rows, d), dtype=np.float32)
+        np.add.at(s1, seg, vals)
+        np.add.at(s2, seg, vals * vals)
+        mx, mref = np_segment_extremum(MAX, vals, seg, n_rows, nbr)
+        x = self.np_tower(s1, s2, mx, np.asarray(k_rows, dtype=np.float32))
+        return x, {"s1": s1, "s2": s2, "mx": mx, "mref": mref}
+
+    def moments(self, vals: torch.Tensor, src: torch.Tensor,
+                seg: torch.Tensor, n_rows: int):
+        """``(s2, mx, mref)``: the second moment and the max with its
+        witness of each row (``s1`` is a bag sum, which the device engine
+        takes from ``embedding_bag``)."""
+        valid = (seg < n_rows)[:, None]
+        vc = torch.where(valid, vals, 0.0)
+        s2 = segment_sum(vc * vc, seg, n_rows)
+        mx, mref = segment_extremum(MAX, torch.where(valid, vals, -np.inf),
+                                    seg, n_rows, src)
+        return s2, mx, mref
+
+    def reaggregate(self, vals, src, seg, n_rows, k_rows):
+        vc = torch.where((seg < n_rows)[:, None], vals, 0.0)
+        s1 = segment_sum(vc, seg, n_rows)
+        s2, mx, mref = self.moments(vals, src, seg, n_rows)
+        return self.tower(s1, s2, mx, k_rows), (s1, s2, mx, mref)
+
+    def gain(self, D, d, kmax, M):
+        return max(float(np.log1p(max(kmax, 0.0))), 1.0) * D
+
+
 SUM = InvertibleAgg("sum")
 MEAN = InvertibleAgg("mean", by_degree=True)
 WSUM = InvertibleAgg("wsum", uses_weights=True)
 MAX = MonotonicAgg("max", sign=1.0)
 MIN = MonotonicAgg("min", sign=-1.0)
+ATTN = AttentionAgg("attn")
+TOPK = TopKAgg("topk")
+PNA = PNAAgg("pna")
 
 AGGREGATORS: dict[str, Aggregator] = {a.name: a for a in
-                                      (SUM, MEAN, WSUM, MAX, MIN)}
-
-# aggregators of the reference that this package does not carry yet
-_UNPORTED = {
-    "attn": "ROADMAP.md Queue 1 item 7 (bounded family)",
-    "topk": "ROADMAP.md Queue 1 item 7 (bounded family)",
-    "pna": "ROADMAP.md Queue 1 item 7 (bounded family)",
-}
+                                      (SUM, MEAN, WSUM, MAX, MIN,
+                                       ATTN, TOPK, PNA)}
 
 
 def get_aggregator(name: str) -> Aggregator:
-    if name in AGGREGATORS:
+    try:
         return AGGREGATORS[name]
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"aggregator {name!r} is not ported yet: {_UNPORTED[name]}")
-    raise KeyError(f"unknown aggregator {name!r}; "
-                   f"known: {', '.join(AGGREGATORS)}")
+    except KeyError:
+        raise KeyError(f"unknown aggregator {name!r}; "
+                       f"known: {', '.join(AGGREGATORS)}") from None
 
 
 # ---------------------------------------------------------------------------
@@ -261,3 +573,128 @@ def segment_extremum(agg: MonotonicAgg, vals: torch.Tensor, seg: torch.Tensor,
     if base_refs is not None:
         C = torch.where(C >= 0, C, base_refs)
     return sign * S_ms, C
+
+
+def compute_bounded_aux(agg: BoundedRecomputeAgg, H: list[np.ndarray],
+                        graph) -> list[dict[str, np.ndarray]]:
+    """Derive the bounded family's cached partial state for a
+    bootstrapped/materialized state on the host: one aux dict per layer
+    (``A[0]`` is a placeholder for index alignment with ``S``).  The
+    engines' bootstrap takes it from the device instead
+    (:func:`repro_torch.core.full.bounded_aux`)."""
+    src, dst, _ = graph.coo()
+    A: list[dict[str, np.ndarray]] = [{}]
+    for l in range(1, len(H)):
+        _, aux = agg.np_reaggregate(H[l - 1], src, dst, graph.n,
+                                    graph.in_degree)
+        A.append(aux)
+    return A
+
+
+# ---------------------------------------------------------------------------
+# Certified error bounds for the bounded family's approximate mode
+# ---------------------------------------------------------------------------
+def _col_abs_sum(w) -> float:
+    """inf-norm Lipschitz constant of ``x -> x @ w``: max column abs-sum."""
+    return float(np.max(np.sum(np.abs(np.asarray(w)), axis=0)))
+
+
+def workload_lipschitz(workload, params_np: list[dict]) -> list[tuple[float, float]]:
+    """Per-layer ``(Lx, Lself)``: inf-norm Lipschitz constants of the
+    UPDATE w.r.t. the neighbor aggregate x and the self embedding h_prev
+    (relu is 1-Lipschitz and drops out)."""
+    out = []
+    for p in params_np:
+        fam = workload.family
+        if fam == "gc":
+            out.append((_col_abs_sum(p["w"]), 0.0))
+        elif fam == "sage":
+            out.append((_col_abs_sum(p["w_nbr"]), _col_abs_sum(p["w_self"])))
+        elif fam == "gin":
+            chain = _col_abs_sum(p["w1"]) * _col_abs_sum(p["w2"])
+            out.append((chain, (1.0 + abs(float(p["eps"]))) * chain))
+        else:
+            raise ValueError(fam)
+    return out
+
+
+def certified_error_bound(workload, params_np: list[dict], eps, M,
+                          kmax: float) -> list[float]:
+    """Forward error recursion for deferred (eps-stale) layer writes.
+
+    ``eps[l]`` is the certified staleness of the *stored* H[l] vs what the
+    engine would have written (eps[0] = eps[L] = 0: features and published
+    embeddings are never deferred); ``M[l]`` a running bound on
+    ``max |H[l]|``; ``kmax`` the max in-degree seen.  Returns per-layer
+    ``E[0..L]``: ``E[l]`` bounds ``|stored H[l] - oracle H[l]|_inf`` per
+    vertex, via ``E_{l+1} = Lx * G(E_l + eps_l) + Lself * (E_l + eps_l)``
+    with the aggregator's certified gain G (sound because a deferred
+    vertex's neighbors aggregated exactly its stored value)."""
+    agg = workload.agg
+    lip = workload_lipschitz(workload, params_np)
+    E = [0.0]
+    for l in range(workload.spec.n_layers):
+        D = E[l] + float(eps[l])
+        Lx, Lself = lip[l]
+        E.append(Lx * agg.gain(D, workload.spec.dims[l], kmax, float(M[l]))
+                 + Lself * D)
+    return E
+
+
+def deferral_budgets(workload, params_np: list[dict], eps, M, kmax: float,
+                     tolerance: float) -> np.ndarray:
+    """Per-layer deferral budgets ``tau[1..L-1]``: the largest per-row
+    write-deferral magnitude at layer l keeping the final-layer certified
+    bound <= tolerance.  ``tau[l] >= eps[l]`` always (re-deferring within
+    the already-certified staleness never raises the bound).
+
+    Each layer's budget is first found with the other layers at their
+    current ``eps``, as the reference computes it.  With two or more
+    interior layers one batch may defer at all of them, and those budgets
+    together can exceed the tolerance (the reference's do); the raises
+    over ``eps`` are then scaled down by one common factor until the bound
+    with every layer at its budget fits.  With one interior layer the
+    budgets are the reference's."""
+    L = workload.spec.n_layers
+    taus = np.zeros(L + 1, dtype=np.float64)
+    if tolerance <= 0 or L < 2:
+        return taus
+
+    def bound_with(l: int, t: float) -> float:
+        e = np.array(eps, dtype=np.float64)
+        e[l] = max(e[l], t)
+        return certified_error_bound(workload, params_np, e, M, kmax)[-1]
+
+    for l in range(1, L):
+        lo = float(eps[l])
+        hi = max(tolerance, lo, 1e-6)
+        for _ in range(60):  # geometric upper bracket
+            if bound_with(l, hi) > tolerance:
+                break
+            lo, hi = hi, hi * 2.0
+        for _ in range(50):
+            mid = 0.5 * (lo + hi)
+            if bound_with(l, mid) <= tolerance:
+                lo = mid
+            else:
+                hi = mid
+        taus[l] = lo
+
+    base = np.array(eps, dtype=np.float64)[1:L]
+    raise_ = taus[1:L] - base
+
+    def joint(a: float) -> float:
+        e = np.array(eps, dtype=np.float64)
+        e[1:L] = base + a * raise_
+        return certified_error_bound(workload, params_np, e, M, kmax)[-1]
+
+    if L > 2 and joint(1.0) > tolerance:
+        lo, hi = 0.0, 1.0
+        for _ in range(50):
+            mid = 0.5 * (lo + hi)
+            if joint(mid) <= tolerance:
+                lo = mid
+            else:
+                hi = mid
+        taus[1:L] = base + lo * raise_
+    return taus

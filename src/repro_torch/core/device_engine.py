@@ -1,5 +1,5 @@
 """Device-resident incremental RIPPLE propagation (single replica),
-invertible and monotonic families.
+invertible, monotonic and bounded-recompute families.
 
 The host engines drive NumPy; this module keeps the whole L-hop
 propagation of one update batch on the device, with *static bucket
@@ -45,21 +45,33 @@ re-cover probe, and the survivors are re-derived from a mirrored in-CSR;
 the hop apply runs through ``extremum_apply``; the next frontier keeps
 only rows whose embedding changed (filtered propagation).  See
 core/aggregators.py for the algebra.
+
+Bounded-recompute workloads (attention / top-k / PNA) run through
+:func:`propagate_bounded`: every affected row re-aggregates over its
+mirrored in-neighbourhood each hop (PNA's first moment through the
+``embedding_bag`` kernel), the cached aux state ``A`` rides the gated
+commit, and the frontier is filtered as for the monotonic family.  With
+``tolerance > 0`` interior-layer writes within the certified deferral
+budget are dropped.
 """
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.delta_apply import delta_apply
+from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.extremum_apply import extremum_apply
 from repro_torch.kernels.mlp_apply import mlp_apply
 from repro_torch.utils import next_bucket, pad_to, resolve_device
 
-from .aggregators import segment_extremum
+from .aggregators import (certified_error_bound, deferral_budgets,
+                          segment_extremum, segment_sum)
 from .graph import _GROW, _MIN_SLACK, DynamicGraph, flat_row_indices
+from .state import params_to_numpy
 from .workloads import Workload
 
 
@@ -172,12 +184,16 @@ class DeviceState(NamedTuple):
     k: torch.Tensor              # [n+1] in-degree (maintained on device)
     C: tuple[torch.Tensor, ...] = ()  # monotonic contributor refs, int32,
     #                                   index-aligned with S (() invertible)
+    A: tuple[tuple[torch.Tensor, ...], ...] = ()  # bounded cached partial
+    #   state: per layer a tuple in aux_names order ([0] empty)
 
     def clone(self) -> "DeviceState":
         return DeviceState(H=tuple(h.clone() for h in self.H),
                            S=tuple(s.clone() for s in self.S),
                            k=self.k.clone(),
-                           C=tuple(c.clone() for c in self.C))
+                           C=tuple(c.clone() for c in self.C),
+                           A=tuple(tuple(a.clone() for a in layer)
+                                   for layer in self.A))
 
 
 class BatchDev(NamedTuple):
@@ -342,16 +358,6 @@ def _unique_recipients(n: int, all_dst: torch.Tensor, r_cap: int):
     return rec_idx, pos, n_rec
 
 
-def _segment_sum(vals: torch.Tensor, seg: torch.Tensor,
-                 r_cap: int) -> torch.Tensor:
-    """Rows of ``vals`` summed by segment id into r_cap rows (id r_cap is
-    the trash segment).  On a card the atomics make the order of the sum
-    vary from run to run."""
-    out = torch.zeros((r_cap + 1,) + vals.shape[1:], dtype=vals.dtype,
-                      device=vals.device)
-    return out.index_add_(0, seg, vals)[:r_cap]
-
-
 def _k_rows(n: int, state: DeviceState, batch: BatchDev,
             rec_idx: torch.Tensor, pos_r: torch.Tensor,
             r_cap: int) -> torch.Tensor:
@@ -360,7 +366,7 @@ def _k_rows(n: int, state: DeviceState, batch: BatchDev,
     updated-degree vector (the full vector is only written once, in the
     gated phase-2 commit)."""
     def cnt(dst: torch.Tensor) -> torch.Tensor:
-        return _segment_sum((dst < n).to(torch.float32),
+        return segment_sum((dst < n).to(torch.float32),
                             pos_r[dst.clamp(max=n)], r_cap)
     return state.k[rec_idx.clamp(max=n - 1)] + cnt(batch.add_dst) \
         - cnt(batch.del_dst)
@@ -437,7 +443,7 @@ def propagate(workload: Workload, n: int,
         rec_idx, pos_r, n_rec = _unique_recipients(n, all_dst, r_cap)
         overflow = overflow | (needed > e_cap) | (n_rec > r_cap)
         sizes.append(torch.stack([n_rec, needed, torch.zeros_like(needed)]))
-        mailbox = _segment_sum(all_val, pos_r[all_dst.clamp(max=n)], r_cap)
+        mailbox = segment_sum(all_val, pos_r[all_dst.clamp(max=n)], r_cap)
         k_rows = _k_rows(n, state, batch, rec_idx, pos_r, r_cap)
         S_rows, h_new, delta = _apply_hop(
             workload, params[l], eps[l], l, n, state, k_rows, patch,
@@ -571,7 +577,7 @@ def _monotonic_hop(workload: Workload, params_l: dict, layer: int, n: int,
     gone = is_del[:, None] | (sign * S_next[dst_c] > sign * vals)
     dim_shrink = covered & gone & valid[:, None]
     n_shrink = dim_shrink.any(dim=1).sum()
-    row_dim = _segment_sum(dim_shrink.to(torch.float32), slot, r_cap) > 0
+    row_dim = segment_sum(dim_shrink.to(torch.float32), slot, r_cap) > 0
 
     # ---- GROW candidate extremum + witnesses (also feeds the probe) ------
     cslot = torch.where(valid & ~is_del, slot, r_cap)
@@ -724,6 +730,186 @@ def propagate_monotonic(workload: Workload, n: int,
     return state, report
 
 
+# ---------------------------------------------------------------------------
+# Bounded-recompute (attention / top-k / PNA) propagation: every affected
+# row re-aggregates over its mirrored in-neighbourhood each hop (refresh-
+# all, one uniform gather in place of the host's PATCH classification),
+# the aux state rides the gated commit, and the frontier stays filtered.
+# With tolerance > 0 the per-layer deferral budgets arrive as a device
+# tensor ``taus``: interior-hop writes within budget are dropped (the stale
+# store is exactly what downstream reads see), and the per-layer max
+# deferred magnitude / max committed |h| travel back to the host, which
+# owns the certified eps / M / kmax accounting.
+# ---------------------------------------------------------------------------
+def _bag_rectangle(n: int, degs: torch.Tensor, fid: torch.Tensor,
+                   pvalid: torch.Tensor, psrc: torch.Tensor, r_cap: int,
+                   h_cap: int) -> torch.Tensor:
+    """The pull's ragged in-neighbourhoods as one ``[r_cap, h_cap]`` int32
+    index rectangle: row r holds row r's in-neighbour ids left-packed in
+    in-CSR order and the sentinel n elsewhere.  Invalid lanes, and lanes
+    past ``h_cap`` (an attempt that overflows), are written to a trash row
+    that is cut off again."""
+    dev = psrc.device
+    csum = torch.cumsum(degs, 0)
+    off = torch.arange(psrc.shape[0], device=dev) - (csum[fid] - degs[fid])
+    keep = pvalid & (off < h_cap)
+    idx = torch.full((r_cap + 1, h_cap), n, dtype=torch.int32, device=dev)
+    idx[torch.where(keep, fid, r_cap), torch.where(keep, off, 0)] = \
+        psrc.to(torch.int32)
+    return idx[:r_cap]
+
+
+def _patched_table(n: int, H_pre: torch.Tensor, patch) -> torch.Tensor:
+    """``[n + 2, d]``: H_pre's rows as if the patch had been written, a zero
+    row n (the rectangle's sentinel) and a trash row n + 1 that takes the
+    patch's padding."""
+    table = torch.cat([H_pre[:n], H_pre.new_zeros((2, H_pre.shape[1]))])
+    table[torch.where(patch[0] < n, patch[0], n + 1)] = patch[1]
+    return table
+
+
+def _bounded_hop(workload: Workload, layer_fn, layer: int, n: int,
+                 state: DeviceState, out_csr: DeviceCSR, in_csr: DeviceCSR,
+                 batch: BatchDev, frontier: torch.Tensor, patch,
+                 tau: torch.Tensor, *, r_cap: int, e_cap: int, p_cap: int,
+                 h_cap: int):
+    """One bounded hop layer -> layer+1 (reads only); returns the hop patch
+    (rec_idx, x_rows, aux tuple, h_out), the filtered next frontier, the
+    overflow flag, the needed sizes (recipients, edges, pulled, max
+    in-degree), the int counters (rows_reaggregated, deferred_rows,
+    bound_violations) and the floats (max deferred b, max committed |h|).
+    """
+    agg = workload.agg
+    H_pre = state.H[layer]
+    pos_p = _patch_pos(n, patch[0])
+
+    edst, _, needed = _expand_frontier_edges(n, out_csr, frontier, e_cap)
+    overflow = needed > e_cap
+    dsts = [edst, batch.add_dst, batch.del_dst]
+    if workload.spec.self_dependent:
+        dsts.append(frontier)
+    rec_idx, pos_r, n_rec = _unique_recipients(n, torch.cat(dsts), r_cap)
+    overflow = overflow | (n_rec > r_cap)
+    aff_c = rec_idx.clamp(max=n - 1)
+    real_row = rec_idx < n
+    k_rows = _k_rows(n, state, batch, rec_idx, pos_r, r_cap)
+
+    # refresh-all pull: the affected rows' post-batch in-neighbourhoods,
+    # post-update layer-l values read through the previous hop's patch
+    degs = torch.where(real_row, in_csr.length[aff_c], 0)
+    psrc, _, fid, pvalid, pull_total = _ragged_gather(n, in_csr, aff_c, degs,
+                                                      p_cap)
+    overflow = overflow | (pull_total > p_cap)
+    hmax = degs.max()
+    pvals = _patched(n, H_pre, pos_p, patch[1], psrc)
+    pseg = torch.where(pvalid, fid, r_cap)
+    if agg.name == "pna":
+        # the first moment is a bag sum over the [r_cap, h_cap] rectangle
+        # of in-neighbour ids (embedding_bag); s2 and the max with its
+        # witness stay segment ops over the same pull
+        overflow = overflow | (hmax > h_cap)
+        s1 = embedding_bag(_patched_table(n, H_pre, patch),
+                           _bag_rectangle(n, degs, fid, pvalid, psrc, r_cap,
+                                          h_cap),
+                           padding_idx=n)
+        s2, mx, mref = agg.moments(pvals, psrc, pseg, r_cap)
+        x_rows = agg.tower(s1, s2, mx, k_rows)
+        aux = (s1, s2, mx, mref)
+    else:
+        x_rows, aux = agg.reaggregate(pvals, psrc, pseg, r_cap, k_rows)
+
+    # ---- apply + certified deferral + filtered propagation ---------------
+    h_prev = _patched(n, H_pre, pos_p, patch[1], rec_idx)
+    h_new = layer_fn(h_prev, x_rows)   # S holds x: normalize is identity
+    stored = state.H[layer + 1][aff_c]
+    changed = (h_new != stored).any(dim=1) & real_row
+    b = (h_new - stored).abs().amax(dim=1)
+    defer = changed & (b <= tau)   # tau = 0 at the last hop: never defers
+    write = changed & ~defer
+    viol = write & (tau > 0)
+    h_out = torch.where(write[:, None], h_new, stored)
+    frontier_next = torch.where(write, rec_idx, n)
+    i_stats = torch.stack([real_row.sum(), defer.sum(), viol.sum()])
+    f_stats = torch.stack([torch.where(defer, b, 0.0).max(),
+                           torch.where(write, h_new.abs().amax(dim=1),
+                                       0.0).max()])
+    sizes = torch.stack([n_rec, needed, pull_total, hmax])
+    return (rec_idx, x_rows, aux, h_out), frontier_next, overflow, sizes, \
+        i_stats, f_stats
+
+
+@torch.no_grad()
+def propagate_bounded(workload: Workload, n: int,
+                      caps: tuple[tuple[int, int, int, int], ...],
+                      layers: list, state: DeviceState, out_csr: DeviceCSR,
+                      in_csr: DeviceCSR, batch: BatchDev,
+                      taus: torch.Tensor, *, donate: bool = True):
+    """L-hop bounded (attention / top-k / PNA) propagation of a routed
+    batch.
+
+    caps[l] = (row_cap, edge_cap, pull_cap, indeg_cap) at hop l: pull_cap
+    bounds the affected rows' total in-degree, indeg_cap their largest
+    in-degree (the width of PNA's bag rectangle).  ``layers`` are the
+    UPDATE modules on the device; ``taus [L+1]`` the per-layer deferral
+    budgets (zeros: exact).  Returns (new_state, report) where ``report``
+    is one int64 device vector [overflow, sizes [L, 4] flattened, counters
+    [3] (rows_reaggregated, deferred_rows, bound_violations), the float32
+    bits of [L+1, 2] (max deferred b, max committed |h|) per layer, final
+    affected idx]; reading it back is the batch's one wait for the device.
+    Same two-phase gated commit as :func:`propagate` (H, S, every A tensor
+    and k), so an overflowing attempt commits nothing, in place or not.
+    """
+    L = workload.spec.n_layers
+    fv = batch.feat_idx
+    old = state.H[0][fv.clamp(max=n - 1)]
+    changed0 = (batch.feat_val != old).any(dim=1) & (fv < n)
+    frontier = torch.where(changed0, fv, n)  # hop-0 filter: no-op writes stop
+    patch = (fv, batch.feat_val)
+    overflow = torch.zeros((), dtype=torch.bool, device=fv.device)
+    i_stats = torch.zeros(3, dtype=torch.int64, device=fv.device)
+    f_rows = [torch.stack([torch.zeros((), device=fv.device),
+                           (batch.feat_val.abs()
+                            * (fv < n)[:, None]).max()])]
+    hops = []
+    sizes = []
+    for l in range(L):
+        r_cap, e_cap, p_cap, h_cap = caps[l]
+        hop_patch, frontier, ovf, hop_sizes, hop_i, hop_f = _bounded_hop(
+            workload, layers[l], l, n, state, out_csr, in_csr, batch,
+            frontier, patch, taus[l + 1], r_cap=r_cap, e_cap=e_cap,
+            p_cap=p_cap, h_cap=h_cap)
+        overflow = overflow | ovf
+        i_stats = i_stats + hop_i
+        hops.append(hop_patch)
+        sizes.append(hop_sizes)
+        f_rows.append(hop_f)
+        patch = (hop_patch[0], hop_patch[3])
+
+    # ---- phase 2: overflow-gated commit (dropped writes hit row n) -------
+    if not donate:
+        state = state.clone()
+    ok = ~overflow
+
+    def gate(idx: torch.Tensor) -> torch.Tensor:
+        return torch.where(ok, idx, n)
+
+    state.H[0].index_copy_(0, gate(fv), batch.feat_val)
+    for l, (rec, x_rows, aux, h_out) in enumerate(hops):
+        state.S[l + 1].index_copy_(0, gate(rec), x_rows)
+        state.H[l + 1].index_copy_(0, gate(rec), h_out)
+        for a, v in zip(state.A[l + 1], aux):
+            a.index_copy_(0, gate(rec), v)
+    ones = torch.ones_like(batch.add_w)
+    state.k.index_add_(0, gate(batch.add_dst), ones)
+    state.k.index_add_(0, gate(batch.del_dst), -ones)
+    # the floats travel as their bits: eps and M feed the certified bound
+    f_bits = (torch.stack(f_rows) * ok).view(torch.int32).to(torch.int64)
+    report = torch.cat([overflow.view(1).to(torch.int64),
+                        torch.stack(sizes).flatten(), i_stats * ok,
+                        f_bits.flatten(), torch.where(ok, frontier, n)])
+    return state, report
+
+
 class DeviceEngine:
     """Host-side engine around the device propagation, with a warm bucket
     ladder.
@@ -748,9 +934,18 @@ class DeviceEngine:
     picks their SHRINK re-derivation regime (see
     :func:`propagate_monotonic`; None: pairs on a card, rows on the CPU).
 
+    Bounded workloads (attention / top-k / PNA) also mirror the
+    in-adjacency and carry the aux state ``A``; per batch they report
+    ``last_rows_reaggregated`` / ``last_deferred_rows`` /
+    ``last_bound_violations`` (``last_patch_events`` stays 0: the device
+    re-aggregates every affected row).  With ``tolerance > 0`` interior
+    writes within the certified budget are deferred and
+    :meth:`error_bound` gives the per-vertex bound on the published error;
+    for the other families ``tolerance > 0`` raises.
+
     ``use_pallas`` is accepted so engine options move across from the JAX
     package, and is inert: the hop apply always runs through the fused
-    kernels.  ``tolerance`` belongs to the bounded family; > 0 raises.
+    kernels, and PNA's first moment always through ``embedding_bag``.
     """
 
     def __init__(self, workload: Workload, params: list,
@@ -759,17 +954,21 @@ class DeviceEngine:
                  use_pallas: bool = False, async_dispatch: bool = False,
                  debug_checks: bool = False, warm: bool = True,
                  tolerance: float = 0.0, pull: str | None = None):
-        if float(tolerance) > 0:
+        self.bounded = workload.agg.algebra == "bounded"
+        self.tolerance = float(tolerance)
+        if self.tolerance > 0 and not self.bounded:
             raise ValueError(
                 f"tolerance > 0 requires a bounded-recompute workload; "
                 f"{workload.spec.name!r} uses the "
                 f"{workload.agg.algebra} family")
         self.device = resolve_device(device)
         self.workload = workload
-        # per-layer parameter tensors under the reference's dict keys
-        self.params = [{nm: p.detach().to(self.device)
-                        for nm, p in layer.named_parameters()}
+        # the UPDATE modules on the device (copies: the caller's stay where
+        # they are) and their tensors under the reference's dict keys
+        self.layers = [copy.deepcopy(layer).to(self.device)
                        for layer in params]
+        self.params = [{nm: p.detach() for nm, p in layer.named_parameters()}
+                       for layer in self.layers]
         # GIN's eps read to the host once here, never per hop
         self.eps = [float(p["eps"]) if "eps" in p else 0.0
                     for p in self.params]
@@ -783,7 +982,20 @@ class DeviceEngine:
             k=_with_trash_row(graph.in_degree, self.device),
             C=(_upload(state_np.C[0], self.device),)
             + tuple(_with_trash_row(c, self.device, fill=-1)
-                    for c in state_np.C[1:]) if self.monotonic else ())
+                    for c in state_np.C[1:]) if self.monotonic else (),
+            A=self._device_aux(state_np.A) if self.bounded else ())
+        if self.bounded:
+            # host-owned certified-bound accounting: eps is authoritative
+            # state (it travels with InferenceState), M and kmax are bounds
+            # grown per batch
+            L = workload.spec.n_layers
+            self._params_np = params_to_numpy(self.layers)
+            self._eps = np.zeros(L + 1) if state_np.eps is None \
+                else np.array(state_np.eps, dtype=np.float64)
+            self._M = np.array([float(np.abs(h).max()) if h.size else 0.0
+                                for h in state_np.H], dtype=np.float64)
+            self._kmax = float(graph.in_degree.max()) if graph.n else 0.0
+            self._zero_taus = torch.zeros(L + 1, device=self.device)
         self.min_bucket = min_bucket
         self.donate = donate
         self.async_dispatch = async_dispatch
@@ -793,11 +1005,12 @@ class DeviceEngine:
         self.pull = pull
         self.out_mirror = DeviceCSRMirror(graph.out, device=self.device)
         self.in_mirror = DeviceCSRMirror(graph.inn, device=self.device) \
-            if self.monotonic else None
+            if self.monotonic or self.bounded else None
         self._bucket = min_bucket
         self._rung = 0          # transient retry boost (0 once sizes known)
         self._hw = None         # per-hop high-water marks: [L, 3] (r, e, 0)
-        #                         invertible, [L, 4] (r, e, p, pd) monotonic
+        #                         invertible, [L, 4] (r, e, p, pd) monotonic,
+        #                         [L, 4] (r, e, p, hmax) bounded
         self._notes = 0         # high-water adoptions (settle-phase counter)
         self.retries = 0        # overflow retries across the stream
         self._pending = None    # (report, batch, caps, k_check)
@@ -806,12 +1019,43 @@ class DeviceEngine:
         self.last_rows_reaggregated = 0
         self.last_dims_reaggregated = 0
         self.last_recover_hits = 0
+        self.last_patch_events = 0      # bounded: the device is refresh-all
+        self.last_deferred_rows = 0
+        self.last_bound_violations = 0
         # per-hop needed sizes summed over committed batches (the last
         # hop's recipients against the affected ids give the share of rows
         # the frontier filter passed)
         self.sizes_total = None
         if warm:
             self._warm()
+
+    def _device_aux(self, A_np: list[dict]) -> tuple:
+        """Host aux arrays -> per-layer device tuples in aux_names order,
+        each with a trash row holding the empty-row value."""
+        agg = self.workload.agg
+        empty = {nm: a.reshape(-1)[0] for nm, a in agg.init_aux(1, 1).items()}
+        return ((),) + tuple(
+            tuple(_with_trash_row(np.asarray(a[nm]), self.device,
+                                  fill=empty[nm]) for nm in agg.aux_names)
+            for a in A_np[1:])
+
+    def error_bound(self) -> np.ndarray:
+        """Certified per-vertex inf-norm bound on the published H[L] against
+        the full oracle (zeros unless deferrals have happened)."""
+        if not self.bounded:
+            return np.zeros(self.n, dtype=np.float32)
+        E = certified_error_bound(self.workload, self._params_np, self._eps,
+                                  self._M, self._kmax)
+        return np.full(self.n, E[-1], dtype=np.float32)
+
+    def _taus(self) -> torch.Tensor:
+        """Per-layer deferral budgets for the next dispatch, as a device
+        tensor (zeros at tolerance 0: the comparison never defers)."""
+        if self.tolerance <= 0:
+            return self._zero_taus
+        t = deferral_budgets(self.workload, self._params_np, self._eps,
+                             self._M, self._kmax, self.tolerance)
+        return _upload(t.astype(np.float32), self.device)
 
     # -- cap schedule ------------------------------------------------------
     _HEADROOM = 1.25  # slack over the high-water mark before bucketing
@@ -851,6 +1095,13 @@ class DeviceEngine:
                                   p_max),
                               min(nb(chans[3], minimum=self.min_bucket),
                                   pd_max))
+                elif self.bounded:
+                    # pull channel: affected rows' total in-degree (<= |E|);
+                    # indeg channel: their largest in-degree (<= n)
+                    cap_l += (min(nb(chans[2], minimum=self.min_bucket),
+                                  e_max),
+                              min(nb(chans[3], minimum=self.min_bucket),
+                                  n_b))
                 caps.append(cap_l)
             return tuple(caps)
         r = min(nb(self._bucket * scale, minimum=self._bucket), n_b)
@@ -858,6 +1109,8 @@ class DeviceEngine:
         for _ in range(L):
             if self.monotonic:
                 caps.append((r, e, min(e, p_max), min(e, pd_max)))
+            elif self.bounded:
+                caps.append((r, e, min(e, e_max), min(e, n_b)))
             else:
                 caps.append((r, e))
             r = min(nb(r * 4), n_b)
@@ -919,6 +1172,8 @@ class DeviceEngine:
         n = self.n
         d0 = int(self.state.H[0].shape[1])
         adds, dels = self.graph.apply_topology(batch.edges)
+        if self.bounded and n:
+            self._kmax = max(self._kmax, float(self.graph.in_degree.max()))
         fa = np.array([f.vertex for f in batch.features], dtype=np.int32)
         fx = (np.stack([f.value for f in batch.features]).astype(np.float32)
               if batch.features else np.zeros((0, d0), np.float32))
@@ -956,6 +1211,11 @@ class DeviceEngine:
 
     # -- dispatch / resolve ------------------------------------------------
     def _run(self, dev_batch: BatchDev, caps: tuple):
+        if self.bounded:
+            return propagate_bounded(
+                self.workload, self.n, caps, self.layers, self.state,
+                self.out_mirror.csr(), self.in_mirror.csr(), dev_batch,
+                self._taus(), donate=self.donate)
         if self.monotonic:
             return propagate_monotonic(
                 self.workload, self.n, caps, self.params, self.state,
@@ -977,16 +1237,23 @@ class DeviceEngine:
         self._pending = (report, dev_batch, caps, k_check)
 
     def _read(self, report: torch.Tensor):
-        """(overflow, sizes [L, channels], counters [4] or None, final ids)
-        from one device report -- the batch's single wait for the device."""
+        """(overflow, sizes [L, channels], counters, final ids) from one
+        device report -- the batch's single wait for the device.  Counters:
+        None (invertible), [4] (monotonic), or ([3] ints, [L+1, 2] floats)
+        (bounded)."""
         L = self.workload.spec.n_layers
         rep = report.cpu().numpy()
-        ch = 4 if self.monotonic else 3
+        ch = 3 if not (self.monotonic or self.bounded) else 4
         end = 1 + ch * L
         sizes = rep[1:end].reshape(L, ch)
-        if not self.monotonic:
-            return bool(rep[0]), sizes, None, rep[end:]
-        return bool(rep[0]), sizes, rep[end:end + 4], rep[end + 4:]
+        if self.monotonic:
+            return bool(rep[0]), sizes, rep[end:end + 4], rep[end + 4:]
+        if self.bounded:
+            f_end = end + 3 + 2 * (L + 1)
+            floats = rep[end + 3:f_end].astype(np.int32).view(np.float32)
+            return bool(rep[0]), sizes, \
+                (rep[end:end + 3], floats.reshape(L + 1, 2)), rep[f_end:]
+        return bool(rep[0]), sizes, None, rep[end:]
 
     def _resolve(self) -> np.ndarray:
         """Check the in-flight batch's overflow flag, retrying it with
@@ -1022,7 +1289,13 @@ class DeviceEngine:
         self._last_affected = final[final < self.n].astype(np.int64)
         self.sizes_total = sizes if self.sizes_total is None \
             else self.sizes_total + sizes
-        if stats is not None:
+        if self.bounded:
+            i_s, f_s = stats
+            (self.last_rows_reaggregated, self.last_deferred_rows,
+             self.last_bound_violations) = (int(v) for v in i_s)
+            self._eps = np.maximum(self._eps, f_s[:, 0].astype(np.float64))
+            self._M = np.maximum(self._M, f_s[:, 1].astype(np.float64))
+        elif stats is not None:
             (self.last_shrink_events, self.last_rows_reaggregated,
              self.last_dims_reaggregated, self.last_recover_hits) = \
                 (int(v) for v in stats)

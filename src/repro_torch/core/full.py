@@ -14,13 +14,25 @@ import torch
 from .workloads import Workload
 
 
+def _reaggregate_all(workload: Workload, h: torch.Tensor, src: torch.Tensor,
+                     dst: torch.Tensor, n: int):
+    """The bounded aggregator's reaggregation of every row over all edges:
+    ``(x [n, d * x_multiplier], aux tuple in aux_names order)``."""
+    k = torch.zeros(n, dtype=h.dtype, device=h.device).index_add_(
+        0, dst, torch.ones(dst.shape[0], dtype=h.dtype, device=h.device))
+    return workload.agg.reaggregate(h[src], src, dst, n, k)
+
+
 def aggregate_all(workload: Workload, h: torch.Tensor, src: torch.Tensor,
                   dst: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
     """One segment reduction over all edges, per the workload's aggregator:
     segment-sum of w_uv * h[u] for the invertible family, segment-max/min
     of h[u] for the monotonic family (empty rows hold the aggregator
-    identity, +/-inf)."""
+    identity, +/-inf), and the aggregator's own reaggregation for the
+    bounded family (whose S stores the normalized aggregate directly)."""
     agg = workload.agg
+    if agg.algebra == "bounded":
+        return _reaggregate_all(workload, h, src, dst, n)[0]
     if agg.algebra == "monotonic":
         out = torch.full((n, h.shape[1]), agg.identity, dtype=h.dtype,
                          device=h.device)
@@ -30,6 +42,24 @@ def aggregate_all(workload: Workload, h: torch.Tensor, src: torch.Tensor,
     msgs = h[src] * w[:, None]
     return torch.zeros((n, h.shape[1]), dtype=h.dtype,
                        device=h.device).index_add_(0, dst, msgs)
+
+
+@torch.no_grad()
+def bounded_aux(workload: Workload, H: list[torch.Tensor], src: np.ndarray,
+                dst: np.ndarray) -> list[dict[str, torch.Tensor]]:
+    """The bounded family's cached partial state of every layer, derived on
+    ``H``'s device from the layer embeddings and the graph's edges: per
+    layer a dict in ``aux_names`` order, ``A[0] = {}`` for index alignment
+    with ``S``.  The device half of ``compute_bounded_aux`` (max witnesses
+    keep the largest in-neighbour id among ties)."""
+    dev = H[0].device
+    n = H[0].shape[0]
+    src_t = torch.as_tensor(np.asarray(src, dtype=np.int64), device=dev)
+    dst_t = torch.as_tensor(np.asarray(dst, dtype=np.int64), device=dev)
+    names = workload.agg.aux_names
+    return [{}] + [dict(zip(names, _reaggregate_all(workload, h, src_t,
+                                                     dst_t, n)[1]))
+                   for h in H[:-1]]
 
 
 @torch.no_grad()

@@ -1,5 +1,5 @@
-"""The GNN inference workloads: the paper's five invertible ones (§7.1.1)
-and the two monotonic ones (max/min).
+"""The GNN inference workloads: the paper's five invertible ones (§7.1.1),
+the two monotonic ones (max/min) and the two bounded-recompute ones.
 
 GC-S   GraphConv + sum            h^l = relu(W_l x^l + b_l)
 GS-S   GraphSAGE + sum            h^l = relu(W_self h^{l-1} + W_nbr x^l + b_l)
@@ -8,17 +8,20 @@ GI-S   GINConv + sum              h^l = MLP_l((1+eps) h^{l-1} + x^l)
 GC-W   GraphConv + weighted sum   x^l = sum_j alpha_ij h_j
 GS-MAX GraphSAGE + max            x^l = max_j h_j (per dim)
 GC-MIN GraphConv + min            x^l = min_j h_j (per dim)
+GA-S   GraphSAGE + attention      x^l = sum_j softmax_j(logit(h_j)) h_j
+GP-M   GraphConv + PNA tower      x^l = [log1p(k)*mean_j, std_j, max_j] h_j
 
 where S^l is the *unnormalized* aggregate of h^{l-1} over in-neighbors and
 x^l its normalized form.  Storing (S, k) instead of x keeps ``mean`` exact
 under in-degree changes from streaming topology updates; for max/min, S^l
-is the tracked extremum and an empty row reads as 0.
+is the tracked extremum and an empty row reads as 0; for the bounded pair,
+S^l holds the normalized aggregate x^l itself.
 
 Each family's UPDATE is an ``nn.Module`` whose parameter names equal the
 reference's parameter-dict keys, so weights made by either package load
-into the other (:func:`params_from_numpy`).  ``WORKLOAD_NAMES`` keeps all
-nine names of the reference; the two bounded ones (ga-s, gp-m) raise at
-:func:`make_workload` until their family is ported.
+into the other (:func:`params_from_numpy`).  The weights that read x
+(``w``, ``w_nbr``, ``w1``) are ``agg.x_multiplier`` times as wide as the
+layer's input, as PNA's tower needs.
 """
 from __future__ import annotations
 
@@ -39,10 +42,10 @@ def _param(*shape: int) -> nn.Parameter:
 class GraphConvLayer(nn.Module):
     """h = act(x @ w + b)."""
 
-    def __init__(self, d_in: int, d_out: int, *, last: bool):
+    def __init__(self, d_in: int, d_out: int, *, last: bool, mult: int = 1):
         super().__init__()
         self.last = last
-        self.w = _param(d_in, d_out)
+        self.w = _param(d_in * mult, d_out)
         self.b = _param(d_out)
 
     def forward(self, h_prev: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -53,11 +56,11 @@ class GraphConvLayer(nn.Module):
 class SageLayer(nn.Module):
     """h = act(h_prev @ w_self + x @ w_nbr + b)."""
 
-    def __init__(self, d_in: int, d_out: int, *, last: bool):
+    def __init__(self, d_in: int, d_out: int, *, last: bool, mult: int = 1):
         super().__init__()
         self.last = last
         self.w_self = _param(d_in, d_out)
-        self.w_nbr = _param(d_in, d_out)
+        self.w_nbr = _param(d_in * mult, d_out)
         self.b = _param(d_out)
 
     def forward(self, h_prev: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -68,11 +71,11 @@ class SageLayer(nn.Module):
 class GinLayer(nn.Module):
     """h = act(relu(((1 + eps) h_prev + x) @ w1 + b1) @ w2 + b2)."""
 
-    def __init__(self, d_in: int, d_out: int, *, last: bool):
+    def __init__(self, d_in: int, d_out: int, *, last: bool, mult: int = 1):
         super().__init__()
         self.last = last
         self.eps = _param()
-        self.w1 = _param(d_in, d_out)
+        self.w1 = _param(d_in * mult, d_out)
         self.b1 = _param(d_out)
         self.w2 = _param(d_out, d_out)
         self.b2 = _param(d_out)
@@ -93,7 +96,8 @@ class WorkloadSpec:
     """A GNN inference workload: model family x aggregation function."""
 
     name: str
-    aggregator: str  # "sum" | "mean" | "wsum" | "max" | "min"
+    aggregator: str  # "sum" | "mean" | "wsum" | "max" | "min" | "attn"
+    #                  | "topk" | "pna"
     self_dependent: bool  # does h^l read h^{l-1}_self directly?
     n_layers: int
     dims: tuple[int, ...]  # (d0, d1, ..., dL)
@@ -117,7 +121,8 @@ class Workload:
         """Zero-initialised UPDATE modules, one per layer."""
         dims, L = self.spec.dims, self.spec.n_layers
         cls = FAMILY_UPDATE[self.family]
-        return [cls(dims[l], dims[l + 1], last=l == L - 1).to(device)
+        return [cls(dims[l], dims[l + 1], last=l == L - 1,
+                    mult=self.agg.x_multiplier).to(device)
                 for l in range(L)]
 
     def init_params(self, generator: torch.Generator,
@@ -177,11 +182,10 @@ _WORKLOAD_TABLE = {
 def make_workload(name: str, n_layers: int = 2, d_in: int = 32,
                   d_hidden: int = 32, n_classes: int = 8) -> Workload:
     """Factory for the paper's five invertible workloads (gc-s, gs-s, gc-m,
-    gi-s, gc-w) and the two monotonic ones (gs-max, gc-min); the bounded
-    names (ga-s, gp-m) raise ``NotImplementedError``."""
+    gi-s, gc-w), the two monotonic ones (gs-max, gc-min) and the two
+    bounded-recompute ones (ga-s, gp-m)."""
     name = name.lower()
     family, agg = _WORKLOAD_TABLE[name]
-    get_aggregator(agg)  # raises for the families not ported yet
     dims = (d_in,) + (d_hidden,) * (n_layers - 1) + (n_classes,)
     spec = WorkloadSpec(name=name, aggregator=agg,
                         self_dependent=_FAMILY_SELF_DEP[family],
@@ -192,3 +196,4 @@ def make_workload(name: str, n_layers: int = 2, d_in: int = 32,
 WORKLOAD_NAMES = tuple(_WORKLOAD_TABLE)
 INVERTIBLE_WORKLOAD_NAMES = ("gc-s", "gs-s", "gc-m", "gi-s", "gc-w")
 MONOTONIC_WORKLOAD_NAMES = ("gs-max", "gc-min")
+BOUNDED_WORKLOAD_NAMES = ("ga-s", "gp-m")

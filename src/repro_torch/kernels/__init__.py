@@ -11,4 +11,6 @@ with ``nvcc`` at first use.
     extremum_apply  fused monotonic hop apply: masked select, max/min fold,
                  finite-mask, product: S' = max|min(base, M);
                  h = act(finite(S')W + b)
+    embedding_bag  sum-mode bag gather: out[b] = sum_h table[idx[b, h]]
+                 (PNA's first moment in the bounded device hop)
 """

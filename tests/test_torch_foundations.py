@@ -112,16 +112,23 @@ def test_params_round_trip(name):
 
 
 def test_unported_workloads_and_aggregators_raise():
-    from repro_torch.core.aggregators import get_aggregator
+    """Every workload name of the reference and every aggregator name
+    constructs in the port; only an unknown name raises (KeyError)."""
+    from repro.core.aggregators import AGGREGATOR_NAMES
+    from repro_torch.core.aggregators import AGGREGATORS, get_aggregator
     assert len(WORKLOAD_NAMES) == 9
-    for name in ("ga-s", "gp-m"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            t_make_workload(name)
-    for agg in ("attn", "topk", "pna"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_aggregator(agg)
-    with pytest.raises(KeyError):
-        get_aggregator("median")
+    for name in WORKLOAD_NAMES:
+        wl = t_make_workload(name)
+        assert wl.spec.name == name and wl.agg is get_aggregator(
+            wl.spec.aggregator)
+    assert tuple(AGGREGATORS) == AGGREGATOR_NAMES
+    for agg in AGGREGATOR_NAMES:
+        assert get_aggregator(agg).name == agg
+    for bad in ("median", "gc-median"):
+        with pytest.raises(KeyError):
+            get_aggregator(bad)
+        with pytest.raises(KeyError):
+            t_make_workload(bad)
 
 
 def test_cuda_request_without_card_fails():
@@ -146,9 +153,11 @@ def test_latency_model_matches_reference():
 _PROBE = """
 import sys
 sys.modules["jax"] = None
+sys.modules["repro"] = None
 import repro_torch, repro_torch.api, repro_torch.launch.stream
+import repro_torch.core.device_engine
 import repro_torch.kernels.delta_apply, repro_torch.kernels.mlp_apply
-import repro_torch.kernels.extremum_apply
+import repro_torch.kernels.extremum_apply, repro_torch.kernels.embedding_bag
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m in ("jax", "repro") or m.startswith(("jax.", "repro.")))]
 assert not bad, bad

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on a card,
 at the shapes of tests/test_kernels.py plus a main-path shape, with its
-bars (1e-5 on S', 1e-4 on h; extremum_apply's S' bit-equal).  Imports no JAX, so it runs where only
+bars (1e-5 on S', 1e-4 on h; extremum_apply's S' bit-equal; embedding_bag
+1e-5 in fp32, 2e-2 in bf16).  Imports no JAX, so it runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -12,6 +13,8 @@ import torch
 
 from repro_torch.kernels.delta_apply import delta_apply
 from repro_torch.kernels.delta_apply.ref import delta_apply_ref
+from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.extremum_apply import extremum_apply
 from repro_torch.kernels.extremum_apply.ref import extremum_apply_ref
 from repro_torch.kernels.mlp_apply import mlp_apply
@@ -119,3 +122,73 @@ def test_extremum_apply_kernel_on_card(cuda, R, Din, Dout, maximize, masked):
         kw["mask"] = kw["mask"].to(torch.float32)
         Sf, hf = extremum_apply(*args, **kw, maximize=maximize, relu=True)
         assert torch.equal(Sf, Sk) and torch.equal(hf, hk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,B,hot,d", [(100, 8, 1, 16), (1000, 32, 4, 64),
+                                       (5000, 16, 8, 128),
+                                       (3000, 64, 4096, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_kernel_on_card(cuda, V, B, hot, d, dtype):
+    """Long bags gather a relu'd table, as the engine gathers embeddings:
+    a sum of thousands of signed terms can land near 0, where fp32
+    rounding in any summation order exceeds a 1e-5 bar."""
+    rng = np.random.default_rng(0)
+    table = _rand(rng, V, d)
+    if hot > 8:
+        table = np.maximum(table, 0.0)
+    table = torch.as_tensor(table, device=cuda).to(dtype)
+    idx = torch.as_tensor(rng.integers(0, V, size=(B, hot)).astype(np.int32),
+                          device=cuda)
+    before = embedding_bag.launches
+    out = embedding_bag(table, idx)
+    ref = embedding_bag_ref(table, idx)
+    torch.cuda.synchronize()
+    assert embedding_bag.launches == before + 1
+    assert out.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,R,hot,d", [(64, 16, 8, 16), (200, 48, 12, 32),
+                                       (1000, 33, 1500, 40)])
+def test_embedding_bag_engine_pattern_on_card(cuda, V, R, hot, d):
+    """Left-packed bags padded with sentinel V (a zero row) over a relu'd
+    table: with and without padding_idx the kernel matches the plain
+    version (1e-5)."""
+    rng = np.random.default_rng(1)
+    table = np.concatenate([np.maximum(_rand(rng, V, d), 0.0),
+                            np.zeros((1, d), np.float32)])
+    idx = np.full((R, hot), V, dtype=np.int32)
+    for r, deg in enumerate(rng.integers(0, hot + 1, size=R)):
+        idx[r, :deg] = rng.integers(0, V, size=deg)
+    t, i = torch.as_tensor(table, device=cuda), torch.as_tensor(idx,
+                                                                device=cuda)
+    plain = embedding_bag_ref(t, i)
+    outs = [embedding_bag(t, i, padding_idx=pad) for pad in (None, V)]
+    torch.cuda.synchronize()
+    for out in outs:
+        torch.testing.assert_close(out, plain, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_refuses_what_the_kernel_does_not_take(cuda):
+    """A CUDA operand of the wrong dtype, shape, layout or device raises;
+    nothing falls back to the plain version."""
+    table = torch.zeros(10, 8, device=cuda)
+    idx = torch.zeros(4, 3, dtype=torch.int32, device=cuda)
+    before = embedding_bag.launches
+    with pytest.raises(TypeError):
+        embedding_bag(table, idx.long())
+    with pytest.raises(TypeError):
+        embedding_bag(table.half(), idx)
+    with pytest.raises(ValueError):
+        embedding_bag(table, idx.reshape(-1))
+    with pytest.raises(ValueError):
+        embedding_bag(table.t(), idx)
+    with pytest.raises(ValueError):
+        embedding_bag(table.cpu(), idx)
+    with pytest.raises(ValueError):
+        embedding_bag(table, idx, padding_idx=10)
+    assert embedding_bag.launches == before
