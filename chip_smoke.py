@@ -7,7 +7,8 @@ Phase 1 builds the hand-written CUDA kernels from this checkout's sources
 with nvcc (into build/kernels/), one nvcc per source, all at once.
 Phase 2 holds each kernel against its plain PyTorch version at the main
 path's shapes and at the ragged shapes of tests/test_kernels.py, and times
-both (embedding_bag also against F.embedding_bag, its library yardstick).
+both (embedding_bag also against F.embedding_bag, segment_mm against
+torch.sparse.mm over the same CSR: library yardsticks).
 Phase 3 drives the port's main paths, one ``device``-engine session each
 -- gc-s (delta_apply), gi-s (mlp_apply), the monotonic gs-max and gc-min
 (extremum_apply), and the bounded-recompute gp-m (embedding_bag) and ga-s
@@ -24,9 +25,17 @@ S[l][v,d] == H[l-1][C[l][v,d], d] exactly, on the device, and report
 their SHRINK counters and filter pass share; the bounded ones hold their
 aux state A to a fresh reaggregation of the final state (sums within
 2e-3, maxima bit-equal, PNA's max witnesses exact) and report the pull
-and PNA's bag rectangle per hop.  Last, a ga-s run in approximate mode
-(tolerance 0.1) over 10 batches of feature jitter holds every published
-row within its certified bound.
+and PNA's bag rectangle per hop.  The bootstrap of every session is the
+full pass, whose invertible aggregation is segment_mm: each invertible
+session's bootstrap must launch it once per layer.  Then a ga-s run in
+approximate mode (tolerance 0.1) over 10 batches of feature jitter holds
+every published row within its certified bound; two ``full``-engine
+sessions (gc-s, and gc-w for weights other than 1) run the first 5
+batches of the stream, launching segment_mm once per layer per batch, and
+hold their final H against a ``device``-engine session over the same
+batches; and a ``ripple``-engine gc-s session (host NumPy, bootstrapped on
+the card) runs 10 batches against the oracle, its rates labelled as the
+host's.
 
 Any fault ends the run with a traceback and a non-zero exit; nothing is
 caught.  Without a CUDA card, or without the repository beside this file,
@@ -66,6 +75,10 @@ ARXIV = dict(n=169_343, m=1_166_243, n_layers=3, d_in=128, d_hidden=128,
              n_classes=40)
 N_UPDATES, BATCH = 3000, 100
 N_PROFILED = 500             # the stream's last 5 batches run under the profiler
+N_FULL_BATCHES = 5           # batches of the full-engine sessions
+N_RIPPLE_BATCHES = 10        # batches of the host ripple session
+SEG_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),   # tests/test_kernels.py
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
 
 def log(*parts) -> None:
@@ -253,6 +266,82 @@ def arxiv_in_degrees():
     return torch.bincount(torch.as_tensor(dst), minlength=ARXIV["n"])
 
 
+@functools.cache
+def arxiv_coo():
+    """The edges of the sessions' arxiv-scale graph after the 10% hold-out
+    (seed 0), with weights drawn as gc-w draws them."""
+    from repro_torch.core.graph import powerlaw_graph
+    from repro_torch.data.streams import snapshot_split
+    src, dst, w = powerlaw_graph(ARXIV["n"], ARXIV["m"], seed=0,
+                                 weighted=True)
+    return snapshot_split(src, dst, w, 0.1, seed=0)[0]
+
+
+def segment_mm_work(n: int, E: int, d: int, elem: int) -> tuple[int, int]:
+    """(bytes, flops): reads x [n, d] and the CSR (rowptr, an int32 id and
+    an fp32 weight per edge) once, writes out [n, d] once; one multiply-add
+    per gathered element."""
+    return elem * d * 2 * n + 8 * E + 4 * (n + 1), 2 * E * d
+
+
+def check_segment_mm(seed: int, src, dst, w, n: int, d: int,
+                     dtype=torch.float32, *, timed: bool) -> dict:
+    """segment_mm against its plain version (index_add_ in fp32) on
+    x ~ N(0, 1), and against itself run twice (bit-equal).  Untimed:
+    tests/test_kernels.py's bars.  Timed (the arxiv graph): each cell
+    within 1e-5 of the sum of its terms' magnitudes (a reordered fp32
+    sum's bar), with torch.sparse.mm over the same CSR as the library
+    yardstick."""
+    from repro_torch.kernels.segment_mm import coo_to_csr, segment_mm_csr
+    from repro_torch.kernels.segment_mm.ref import segment_mm_ref
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device=DEVICE).to(dtype)
+    csr = coo_to_csr(src, dst, w, n, DEVICE)
+
+    def kernel():
+        return segment_mm_csr(csr, x)
+
+    def plain():
+        return segment_mm_ref(csr.col, csr.row, csr.w, x, n)
+
+    out, ref = kernel(), plain()
+    mag = segment_mm_ref(csr.col, csr.row, csr.w.abs(), x.abs(), n).float()
+    again = kernel()
+    torch.cuda.synchronize()
+    if not torch.equal(again, out):
+        raise AssertionError("segment_mm differs between two runs")
+    err = (out.float() - ref.float()).abs()
+    if timed:
+        if not bool((err <= 1e-5 * mag).all()):
+            raise AssertionError(f"segment_mm exceeds 1e-5 of its terms' "
+                                 f"magnitude at n={n} d={d}")
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), **SEG_TOL[dtype])
+    row = dict(kernel="segment_mm", n=n, E=len(src), d=d, dtype=str(dtype),
+               long_rows=int(csr.long_rows.shape[0]), spans=csr.n_spans,
+               max_in_degree=int((csr.rowptr[1:] - csr.rowptr[:-1]).max()),
+               max_abs_err=err.max().item(),
+               max_err_over_magnitude=(err / mag.clamp(min=1e-30))
+               .max().item())
+    if timed:
+        A = torch.sparse_csr_tensor(csr.rowptr, csr.col, csr.w, size=(n, n))
+        # the yardstick computes the same function, to the same bar
+        if not bool(((torch.sparse.mm(A, x) - ref).abs()
+                     <= 1e-5 * mag).all()):
+            raise AssertionError("torch.sparse.mm disagrees with the plain "
+                                 "version")
+        nbytes, flops = segment_mm_work(n, len(src), d, x.element_size())
+        b_ms, b_by = bound_ms(nbytes, flops)
+        row.update(
+            ms=device_ms(kernel), plain_ms=device_ms(plain),
+            library_ms=device_ms(lambda: torch.sparse.mm(A, x)),
+            bound_ms=b_ms, bound_by=b_by,
+            # every edge's source row read once, with no reuse
+            gather_bound_ms=bound_ms(nbytes + x.element_size() * d
+                                     * (len(src) - n), flops)[0])
+    return row
+
+
 def check_embedding_bag(seed: int, V: int, B: int, hot: int, d: int,
                         dtype=torch.float32, degs=None, *,
                         timed: bool) -> dict:
@@ -312,8 +401,20 @@ def check_embedding_bag(seed: int, V: int, B: int, hot: int, d: int,
 
 def phase_kernels() -> list[dict]:
     """Every kernel against its plain version; main-path shapes timed."""
+    from repro_torch.core.graph import erdos_renyi
     gen = torch.Generator().manual_seed(0)
     rows = []
+    for n, m, d in ((100, 400, 32), (257, 1500, 64), (64, 300, 128),
+                    (300, 2000, 16)):
+        src, dst, w = erdos_renyi(n, m, seed=1, weighted=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            rows.append(check_segment_mm(len(rows), src, dst, w, n, d, dtype,
+                                         timed=False))
+    # the main path's shape: the full pass over the arxiv session graph
+    src, dst, w = arxiv_coo()
+    for d in (128, 40):
+        rows.append(check_segment_mm(len(rows), src, dst, w, ARXIV["n"], d,
+                                     timed=True))
     for V, B, hot, d in ((100, 8, 1, 16), (1000, 32, 4, 64),
                          (5000, 16, 8, 128)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -442,20 +543,75 @@ def check_bounded_aux(session) -> dict:
     return out
 
 
+def build_session(workload: str, engine: str, counters: dict, **options):
+    """An arxiv-scale session, bootstrapped by one full pass on the card.
+    The launch counts are set to 0 just before the build and read just
+    after: the full pass of an invertible workload is segment_mm, once per
+    layer (a device engine's warm-up batch adds its hop kernels).  Returns
+    (session, build seconds, segment_mm's bootstrap launches)."""
+    from repro_torch.api import InferenceSession, SessionConfig
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    session = InferenceSession.build(SessionConfig(
+        workload=workload, engine=engine, graph="powerlaw",
+        holdout_frac=0.1, seed=0, device=DEVICE, **options, **ARXIV))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    boot = {name: fn.launches for name, fn in counters.items()}
+    want = ARXIV["n_layers"] \
+        if session.workload.agg.algebra == "invertible" else 0
+    if boot["segment_mm"] != want:
+        raise AssertionError(f"{workload}/{engine}: the bootstrap launched "
+                             f"{boot}, expected segment_mm {want} times")
+    return session, build_s, boot["segment_mm"]
+
+
+def hold_close(got: torch.Tensor, ref: torch.Tensor, label: str) -> dict:
+    """``got`` against ``ref`` at atol/rtol 2e-3 per element, where fp32
+    can resolve that: an element left small by cancellation in a row whose
+    values reach 1e4-1e5 (gc-s's last layer at this scale) carries more
+    rounding than that in any fp32 evaluation (``last_f64_bar_use`` of a
+    full session measures both engines against a float64 pass), and is
+    held to 2e-3 of its row's largest value instead.  Returns the largest
+    error, the largest share of the per-element bar used, and how many
+    elements were over it."""
+    err = (got - ref).abs()
+    elem = ORACLE_TOL["atol"] + ORACLE_TOL["rtol"] * ref.abs()
+    row = ORACLE_TOL["atol"] \
+        + ORACLE_TOL["rtol"] * ref.abs().amax(dim=1, keepdim=True)
+    if not bool((err <= row).all()):
+        raise AssertionError(f"{label}: error {err.max().item()} beyond "
+                             f"2e-3 of its row's scale")
+    return dict(max_err=err.max().item(),
+                max_elem_bar_use=(err / elem).max().item(),
+                elems_over_elem_bar=int((err > elem).sum()))
+
+
+def check_oracle(session) -> list[dict]:
+    """Every layer of the session's state, and its query, against the
+    port's full-inference oracle on the current graph (:func:`hold_close`);
+    returns each layer's numbers."""
+    from repro_torch.core.full import full_inference
+    state = session.sync()
+    H_ref, _ = full_inference(session.workload, session.params,
+                              torch.as_tensor(state.H[0], device=DEVICE),
+                              *session.graph.coo(), session.graph.in_degree)
+    out = [hold_close(torch.as_tensor(state.H[l], device=DEVICE), H_ref[l],
+                      f"layer {l}") for l in range(1, len(H_ref))]
+    hold_close(torch.as_tensor(session.query(), device=DEVICE), H_ref[-1],
+               "query")
+    return out
+
+
 def run_session(workload: str, counters: dict, kernel: str | None) -> dict:
     """One arxiv-scale device-engine session, checked against the oracle.
     Every launch count is set to 0 just before the session is driven and
     read just after; ``kernel`` (None for a path with no kernel of its own)
     must have run on every hop of every batch."""
-    from repro_torch.api import InferenceSession, SessionConfig
     from repro_torch.core.full import full_inference
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    session = InferenceSession.build(SessionConfig(
-        workload=workload, engine="device", graph="powerlaw",
-        holdout_frac=0.1, seed=0, device=DEVICE, **ARXIV))
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    session, build_s, boot = build_session(workload, "device", counters)
     updates = session.make_stream(N_UPDATES, seed=1).updates
     eng = session.engine.impl
     H_start = [h.clone() for h in eng.state.H] \
@@ -505,7 +661,8 @@ def run_session(workload: str, counters: dict, kernel: str | None) -> dict:
         workload=workload, n=ARXIV["n"], edges=session.graph.num_edges,
         layers=L, width=ARXIV["d_hidden"], classes=ARXIV["n_classes"],
         updates=len(updates), timed_batches=report.n_batches, batch=BATCH,
-        build_s=build_s, launches=launches, retries=eng.retries,
+        build_s=build_s, bootstrap_segment_mm_launches=boot,
+        launches=launches, retries=eng.retries,
         hop_caps=[list(c) for c in eng._caps(0)],
         mirror_uploads=eng.out_mirror.uploads,
         steady_ups=BATCH / (p50 * 1e-3), p50_ms=p50,
@@ -614,6 +771,146 @@ def run_tolerance_session(workload: str = "ga-s", tolerance: float = 0.1,
     return result
 
 
+def f64_share(session, Hs: list) -> list[float]:
+    """The largest share of the per-element 2e-3 bar that each final layer
+    in ``Hs`` uses against a float64 full pass over the session's graph
+    (the plain segment-sum and the layers in float64): how far fp32
+    evaluations of that layer can be from its exact value."""
+    import copy
+    src, dst, w = session.graph.coo()
+    s_t = torch.as_tensor(src, device=DEVICE)
+    d_t = torch.as_tensor(dst, device=DEVICE)
+    w_t = torch.as_tensor(w, device=DEVICE).double() \
+        if session.workload.spec.weighted \
+        else torch.ones(len(src), device=DEVICE, dtype=torch.float64)
+    k = torch.as_tensor(session.graph.in_degree, device=DEVICE).double()
+    h = torch.as_tensor(session.state.H[0], device=DEVICE).double()
+    for layer in session.params:
+        s_l = torch.zeros_like(h).index_add_(0, d_t, h[s_t] * w_t[:, None])
+        h = copy.deepcopy(layer).double()(h, session.workload.normalize(s_l,
+                                                                         k))
+    bar = ORACLE_TOL["atol"] + ORACLE_TOL["rtol"] * h.abs()
+    return [((torch.as_tensor(H, device=DEVICE).double() - h).abs() / bar)
+            .max().item() for H in Hs]
+
+
+def run_full_session(workload: str, counters: dict) -> dict:
+    """The ``full`` engine (a from-scratch pass on the card after every
+    batch) over the stream's first batches: segment_mm must launch exactly
+    once per layer per batch and nothing else at all; each layer's S must
+    hold against the plain aggregation of the session's own H (1e-5 of the
+    terms' magnitude); a fresh pass over the final graph must give the
+    same bits (no atomics); and the final H must hold against a
+    ``device``-engine session over the same batches (:func:`hold_close`).
+    Also times the bare full pass on the card ("s per full pass"), the
+    host's edge export (``graph.coo()``) and the whole state rewrite a
+    batch does (export, upload, pass, download of every H and S)."""
+    from repro_torch.api.engines import _materialize_state
+    from repro_torch.core.full import full_inference
+    from repro_torch.kernels.segment_mm.ref import segment_mm_ref
+    L = ARXIV["n_layers"]
+    session, build_s, boot = build_session(workload, "full", counters)
+    updates = session.make_stream(N_UPDATES, seed=1).updates
+    updates = updates[:N_FULL_BATCHES * BATCH]
+    for fn in counters.values():
+        fn.launches = 0
+    report = session.ingest(updates, batch_size=BATCH)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if launches["segment_mm"] != L * report.n_batches \
+            or sum(launches.values()) != launches["segment_mm"]:
+        raise AssertionError(f"{workload}/full: {launches} launches for "
+                             f"{report.n_batches} batches x {L} layers")
+    state = session.sync()
+    x = torch.as_tensor(state.H[0], device=DEVICE)
+    src, dst, w = session.graph.coo()
+    w_t = torch.as_tensor(w, device=DEVICE) if session.workload.spec.weighted \
+        else torch.ones(len(src), device=DEVICE)
+    s_t = torch.as_tensor(src, device=DEVICE)
+    d_t = torch.as_tensor(dst, device=DEVICE)
+    seg_err = []
+    for l in range(1, L + 1):
+        h = torch.as_tensor(state.H[l - 1], device=DEVICE)
+        plain = segment_mm_ref(s_t, d_t, w_t, h, ARXIV["n"])
+        mag = segment_mm_ref(s_t, d_t, w_t.abs(), h.abs(), ARXIV["n"])
+        err = (torch.as_tensor(state.S[l], device=DEVICE) - plain).abs()
+        if not bool((err <= 1e-5 * mag).all()):
+            raise AssertionError(f"{workload}/full: S[{l}] exceeds 1e-5 of "
+                                 f"its terms' magnitude")
+        seg_err.append(err.max().item())
+    pass_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        H_pass, _ = full_inference(session.workload, session.params, x, src,
+                                   dst, w, session.graph.in_degree)
+        torch.cuda.synchronize()
+        pass_s.append(time.perf_counter() - t0)
+        for l in range(1, L + 1):
+            if not torch.equal(H_pass[l].cpu(),
+                               torch.as_tensor(state.H[l])):
+                raise AssertionError(f"{workload}/full: a fresh pass gave "
+                                     f"other bits at layer {l}")
+    t0 = time.perf_counter()
+    session.graph.coo()
+    coo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _materialize_state(session.workload, session.params, session.graph,
+                       state, DEVICE)
+    materialize_s = time.perf_counter() - t0
+    dev, _, _ = build_session(workload, "device", counters)
+    dev.ingest(dev.make_stream(N_UPDATES, seed=1).updates[:len(updates)],
+               batch_size=BATCH)
+    dstate = dev.sync()
+    vs_device = [hold_close(torch.as_tensor(state.H[l], device=DEVICE),
+                            torch.as_tensor(dstate.H[l], device=DEVICE),
+                            f"{workload} full vs device, layer {l}")
+                 for l in range(1, L + 1)]
+    # both final layers against float64: what fp32 can resolve there
+    last_f64_bar_use = dict(zip(("full", "device"),
+                                f64_share(session, [state.H[L],
+                                                    dstate.H[L]])))
+    result = dict(
+        workload=workload, engine="full", n=ARXIV["n"],
+        edges=session.graph.num_edges, layers=L, batches=report.n_batches,
+        batch=BATCH, build_s=build_s, bootstrap_segment_mm_launches=boot,
+        launches=launches, p50_ms=report.median_latency_ms,
+        batch_ms=[t * 1e3 for t in report.latencies],
+        full_pass_s=pass_s, host_coo_s=coo_s, materialize_s=materialize_s,
+        S_err_vs_plain_per_layer=seg_err,
+        vs_device_per_layer=vs_device, last_f64_bar_use=last_f64_bar_use)
+    log("full_session", json.dumps(result))
+    return result
+
+
+def run_ripple_session(counters: dict) -> dict:
+    """The host ``ripple`` engine on gc-s: NumPy on the host over the state
+    the full pass bootstrapped on the card; no kernel launches while it
+    runs.  Held against the oracle after its batches; its rates are the
+    host's."""
+    session, build_s, boot = build_session("gc-s", "ripple", counters)
+    updates = session.make_stream(N_UPDATES, seed=1).updates
+    for fn in counters.values():
+        fn.launches = 0
+    report = session.ingest(updates[:N_RIPPLE_BATCHES * BATCH],
+                            batch_size=BATCH)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if sum(launches.values()):
+        raise AssertionError(f"the host ripple engine launched {launches}")
+    vs_oracle = check_oracle(session)
+    p50 = report.median_latency_ms
+    result = dict(
+        workload="gc-s", engine="ripple", n=ARXIV["n"],
+        edges=session.graph.num_edges, batches=report.n_batches,
+        batch=BATCH, build_s=build_s, bootstrap_segment_mm_launches=boot,
+        host_p50_ms=p50, host_p99_ms=report.p99_latency_ms,
+        host_steady_ups=BATCH / (p50 * 1e-3),
+        affected_per_batch=[int(r.affected.size) for r in report.results],
+        vs_oracle_per_layer=vs_oracle)
+    log("ripple_session", json.dumps(result))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -629,6 +926,7 @@ def main() -> int:
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.extremum_apply import extremum_apply
     from repro_torch.kernels.mlp_apply import mlp_apply
+    from repro_torch.kernels.segment_mm import segment_mm
 
     # ---- phase 1: build --------------------------------------------------
     build_s = _build.build_all()
@@ -646,22 +944,30 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     # ---- phase 2: kernels against their plain versions -------------------
-    phase_kernels()
+    kernel_rows = phase_kernels()
 
     # ---- phase 3: the main paths, one session each -----------------------
     counters = {"delta_apply": delta_apply, "mlp_apply": mlp_apply,
                 "extremum_apply": extremum_apply,
-                "embedding_bag": embedding_bag}
+                "embedding_bag": embedding_bag, "segment_mm": segment_mm}
     sessions = [run_session(wl, counters, kernel) for wl, kernel in (
         ("gc-s", "delta_apply"), ("gi-s", "mlp_apply"),
         ("gs-max", "extremum_apply"), ("gc-min", "extremum_apply"),
         ("gp-m", "embedding_bag"), ("ga-s", None))]
+    run_tolerance_session()
+    full_sessions = [run_full_session(wl, counters)
+                     for wl in ("gc-s", "gc-w")]
+    ripple = run_ripple_session(counters)
     launches = {name: sum(s["launches"][name] for s in sessions)
                 for name in counters}
+    # segment_mm: the full engines' batches and every bootstrap counted
+    launches["segment_mm"] = sum(
+        s["launches"]["segment_mm"] + s["bootstrap_segment_mm_launches"]
+        for s in full_sessions) + sum(
+        s["bootstrap_segment_mm_launches"] for s in sessions + [ripple])
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"{name} never launched on the main path")
-    run_tolerance_session()
 
     # ---- the kernels line: timed at the main path's largest hop ----------
     gen = torch.Generator().manual_seed(1)
@@ -710,6 +1016,19 @@ def main() -> int:
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
         shape=f"B={B} hot={hot} d=128 kept={row['kept_lanes']}",
+        passed=True))
+    # segment_mm at the full pass's shape, timed in phase 2
+    row = next(r for r in kernel_rows if r["kernel"] == "segment_mm"
+               and r["n"] == ARXIV["n"] and r["d"] == 128)
+    kernels.append(dict(
+        name="segment_mm", route="cuda",
+        source="src/repro_torch/kernels/csrc/segment_mm.cu",
+        replaces="src/repro/kernels/segment_mm/kernel.py:74",
+        launches=launches["segment_mm"], max_abs_err=row["max_abs_err"],
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"],
+        shape=f"n={row['n']} E={row['E']} d=128 "
+              f"max_in_degree={row['max_in_degree']}",
         passed=True))
     torch.cuda.synchronize()
 

@@ -7,13 +7,22 @@ returning the authoritative host ``InferenceState``.
 
 Registered backends:
 
+    ripple      incremental delta-message engine (paper §4.3, host NumPy)
+    rc          layer-wise recompute over affected neighborhoods (§4.2,
+                host NumPy)
     device      device-resident incremental propagation (device_engine.py)
+    vertexwise  per-target recursive expansion (the paper's DNC baseline);
+                lazy -- updates mutate the graph/features, embeddings are
+                computed on query
     full        from-scratch layer-wise inference over the whole graph on
                 every batch (the exactness oracle as an engine)
 
-The reference's other engine names (ripple, rc, vertexwise, dist, dist-rc)
-are registered too, so the name table matches; building one raises
-``NotImplementedError`` naming the ROADMAP.md item where it lands.
+The host engines work on the host ``InferenceState`` that the full pass
+bootstrapped on the session's device; ``full`` and ``vertexwise.sync`` run
+that pass (``segment_mm`` for the invertible workloads) on their ``device``.
+The reference's distributed names (dist, dist-rc) are registered too, so
+the name table matches; building one raises ``NotImplementedError`` naming
+the ROADMAP.md item where it lands.
 """
 from __future__ import annotations
 
@@ -24,9 +33,12 @@ import torch
 
 from repro_torch.core.aggregators import compute_contributors
 from repro_torch.core.device_engine import DeviceEngine
+from repro_torch.core.engine import RecomputeEngine, RippleEngine
 from repro_torch.core.full import bounded_aux, full_inference
 from repro_torch.core.graph import DynamicGraph, UpdateBatch
-from repro_torch.core.state import InferenceState, _to_numpy, aux_to_numpy
+from repro_torch.core.state import (InferenceState, _to_numpy, aux_to_numpy,
+                                    params_to_numpy)
+from repro_torch.core.vertexwise import VertexWiseEngine
 from repro_torch.core.workloads import Workload
 from repro_torch.utils import resolve_device
 
@@ -59,6 +71,63 @@ def _materialize_state(workload: Workload, params: list, graph: DynamicGraph,
     return state
 
 
+class _HostAdapter:
+    """Shared adapter over the NumPy host engines (ripple / rc)."""
+
+    _impl_cls: type
+
+    def __init__(self, workload: Workload, params: list,
+                 graph: DynamicGraph, state: InferenceState, *,
+                 tolerance: float = 0.0):
+        self._impl = self._impl_cls(workload, params_to_numpy(params),
+                                    graph, state, tolerance=tolerance)
+
+    def apply_batch(self, batch: UpdateBatch) -> UpdateResult:
+        s = self._impl.apply_batch(batch)
+        return UpdateResult(affected=np.asarray(s.final_affected),
+                            wall_seconds=s.wall_seconds,
+                            affected_per_hop=s.affected_per_hop,
+                            messages_per_hop=s.messages_per_hop,
+                            numeric_ops=s.numeric_ops,
+                            shrink_events=s.shrink_events,
+                            rows_reaggregated=s.rows_reaggregated,
+                            dims_reaggregated=s.dims_reaggregated,
+                            recover_hits=s.recover_hits,
+                            patch_events=s.patch_events,
+                            bound_violations=s.bound_violations,
+                            deferred_rows=s.deferred_rows)
+
+    def error_bound(self) -> np.ndarray:
+        """Certified per-vertex error bound (bounded workloads; zeros
+        elsewhere and at tolerance=0 with no deferred staleness)."""
+        return self._impl.error_bound()
+
+    def sync(self) -> InferenceState:
+        return self._impl.state
+
+    @property
+    def state(self) -> InferenceState:
+        return self._impl.state
+
+
+_TOLERANCE_OPTION = EngineOption(
+    "tolerance", 0.0,
+    "bounded-family approximate mode: interior-layer writes within the "
+    "certified deferral budget are skipped so the published error stays "
+    "<= tolerance (error_bound() gives the certified bound); 0.0 is "
+    "bit-exact; > 0 raises for the invertible and monotonic workloads")
+
+
+@register_engine("ripple", "rp", options=(_TOLERANCE_OPTION,))
+class RippleAdapter(_HostAdapter):
+    _impl_cls = RippleEngine
+
+
+@register_engine("rc", "recompute")
+class RecomputeAdapter(_HostAdapter):
+    _impl_cls = RecomputeEngine
+
+
 _DEVICE_OPTION = EngineOption(
     "device", "cuda",
     "torch device the engine computes on; 'cuda' raises when no card is "
@@ -87,12 +156,7 @@ _DEVICE_OPTIONS = (
     EngineOption("warm", True,
                  "run the rung-0 cap schedule once at construction on a "
                  "sentinel no-op batch"),
-    EngineOption("tolerance", 0.0,
-                 "bounded-family approximate mode: interior-layer writes "
-                 "within the certified deferral budget are skipped so the "
-                 "published error stays <= tolerance (error_bound() gives "
-                 "the certified bound); > 0 raises for the invertible and "
-                 "monotonic workloads"),
+    _TOLERANCE_OPTION,
 )
 
 
@@ -231,6 +295,57 @@ class FullRecomputeAdapter:
         return self._state
 
 
+@register_engine("vertexwise", "dnc", options=(_DEVICE_OPTION,))
+class VertexWiseAdapter:
+    """Per-target recursive expansion (DNC, paper Fig. 1/8).
+
+    Updates only mutate the graph and input features; embeddings are
+    expanded per target on ``query`` (exact by construction, with all the
+    redundant recomputation the paper quantifies).  ``sync()`` materializes
+    the full layered state with the full pass on ``device``, so hot-swap
+    out of this backend is possible.
+    """
+
+    def __init__(self, workload: Workload, params: list,
+                 graph: DynamicGraph, state: InferenceState, *,
+                 device="cuda"):
+        self.workload = workload
+        self.params = params
+        self._params_np = params_to_numpy(params)
+        self.graph = graph
+        self.device = resolve_device(device)
+        self._state = state
+        self._dirty = False
+        self.ops = 0  # cumulative aggregation ops across queries
+
+    def apply_batch(self, batch: UpdateBatch) -> UpdateResult:
+        t0 = time.perf_counter()
+        self.graph.apply_topology(batch.edges)
+        for f in batch.features:
+            self._state.H[0][f.vertex] = np.asarray(f.value, dtype=np.float32)
+        self._dirty = True
+        return UpdateResult(affected=_touched(batch),
+                            wall_seconds=time.perf_counter() - t0)
+
+    def query(self, vertices: np.ndarray) -> np.ndarray:
+        vw = VertexWiseEngine(self.workload, self._params_np, self.graph,
+                              self._state.H[0])
+        out = vw.infer(np.asarray(vertices, dtype=np.int64))
+        self.ops += vw.ops
+        return out
+
+    def sync(self) -> InferenceState:
+        if self._dirty:
+            _materialize_state(self.workload, self.params, self.graph,
+                               self._state, self.device)
+            self._dirty = False
+        return self._state
+
+    @property
+    def state(self) -> InferenceState:
+        return self.sync()
+
+
 def _unported(name: str, *aliases: str, item: str) -> None:
     """Register a reference engine name whose port is still to come."""
     def factory(*args, **kwargs):
@@ -239,10 +354,6 @@ def _unported(name: str, *aliases: str, item: str) -> None:
     register_engine(name, *aliases)(factory)
 
 
-_unported("ripple", "rp", item="ROADMAP.md Queue 1 item 3 (host engines)")
-_unported("rc", "recompute", item="ROADMAP.md Queue 1 item 3 (host engines)")
-_unported("vertexwise", "dnc",
-          item="ROADMAP.md Queue 1 item 8 (vertexwise engine)")
 _unported("dist", "distributed",
           item="ROADMAP.md Queue 1 item 10 (distributed path)")
 _unported("dist-rc", "dist-recompute",

@@ -12,7 +12,9 @@ queries, and pick the execution backend per the hardware at hand::
     session.swap_engine("full")            # migrate state mid-stream
 
 Everything runs on ``SessionConfig.device`` (``"cuda"`` unless the caller
-passes ``"cpu"``); engines that declare a ``device`` option get it.
+passes ``"cpu"``); engines that declare a ``device`` option get it (device,
+full, vertexwise), and the host engines (ripple, rc) work in NumPy on the
+state that the full pass bootstrapped there.
 Engine selection always goes through ``repro_torch.api.registry``.
 Checkpoints and the update journal are not ported yet (ROADMAP.md
 Queue 1 item 4).
@@ -280,10 +282,10 @@ class InferenceSession:
         """Hot-swap the execution backend mid-stream.
 
         Downloads the current engine's state to the host, then constructs
-        the new backend over the *same* graph + state -- exact, because all
-        backends share the (H, S, k) state contract, plus the contributor
-        refs C of the monotonic workloads and the aux state A and staleness
-        eps of the bounded ones.
+        the new backend over the *same* graph + state -- exact between the
+        host and device engines, because all backends share the (H, S, k)
+        state contract, plus the contributor refs C of the monotonic
+        workloads and the aux state A and staleness eps of the bounded ones.
         """
         name = canonical_name(name)
         if name == self.engine_name and not options:

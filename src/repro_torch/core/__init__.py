@@ -1,2 +1,3 @@
-"""Graph store, aggregator algebra, workloads, oracle, state and the
-device engine."""
+"""Graph store, aggregator algebra, workloads, oracle, state, the host
+engines and the device engine."""
+from .engine import BatchStats, RecomputeEngine, RippleEngine  # noqa: F401

@@ -37,9 +37,16 @@ state in ``A`` (a softmax normalizer + max-logit anchor, the k-th-value
 threshold, or running moments with a tracked max), ``S`` stores the
 *normalized* aggregate directly (``normalize`` is the identity), and the
 device engine re-aggregates every affected row over its in-neighbourhood
-with :meth:`BoundedRecomputeAgg.reaggregate`.  With ``tolerance > 0`` an
+with :meth:`BoundedRecomputeAgg.reaggregate`, while the host engines
+classify each touched row as an O(1) PATCH of its cache or a REFRESH
+(:meth:`BoundedRecomputeAgg.np_patch`).  With ``tolerance > 0`` an
 interior-layer write within the certified deferral budget may be skipped;
 :func:`certified_error_bound` bounds the published error.
+
+Every aggregator has a torch half (``normalize``, ``reaggregate``) for the
+device and the full pass, and a NumPy half (``np_normalize``,
+``np_reaggregate``, ``np_patch``, ``aggregate_dense``) for the host engines
+of ``core/engine.py`` and ``core/vertexwise.py``.
 """
 from __future__ import annotations
 
@@ -79,6 +86,10 @@ class Aggregator:
         """Aggregate -> UPDATE input (x = norm(S, k))."""
         return S
 
+    def np_normalize(self, S: np.ndarray, k: np.ndarray) -> np.ndarray:
+        """NumPy half of :meth:`normalize`, for the host engines."""
+        return S
+
 
 @dataclass(frozen=True)
 class InvertibleAgg(Aggregator):
@@ -94,6 +105,11 @@ class InvertibleAgg(Aggregator):
     def normalize(self, S: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         if self.by_degree:
             return S / torch.clamp(k, min=1.0)[:, None]
+        return S
+
+    def np_normalize(self, S, k):
+        if self.by_degree:
+            return S / np.maximum(k, 1.0)[:, None]
         return S
 
 
@@ -129,6 +145,9 @@ class MonotonicAgg(Aggregator):
         # identity rows (no in-neighbors) read as 0, matching segment_sum's
         # empty-row convention for the invertible family
         return torch.where(torch.isfinite(S), S, 0.0)
+
+    def np_normalize(self, S, k):
+        return np.where(np.isfinite(S), S, 0.0)
 
 
 def _segment_max(vals: torch.Tensor, seg: torch.Tensor,
@@ -215,8 +234,8 @@ class BoundedRecomputeAgg(Aggregator):
     neighbourhood per update.  Incremental cost stays frontier-proportional
     by caching per-vertex partial state (``InferenceState.A``) and
     re-aggregating only the rows an update touches; the device engine
-    re-aggregates every such row (refresh-all), the host engines classify
-    each into an O(1) PATCH or a REFRESH (not ported yet).
+    re-aggregates every such row (refresh-all), the host ripple engine
+    classifies each into an O(1) PATCH or a REFRESH (:meth:`np_patch`).
 
     Contract notes: ``S`` stores the *normalized* aggregate x directly
     (``normalize`` is the identity); ``x_multiplier`` widens the UPDATE's
@@ -246,6 +265,26 @@ class BoundedRecomputeAgg(Aggregator):
         aux dict)``."""
         raise NotImplementedError
 
+    def np_patch(self, x_rows, aux, k_rows, seg, src, val_old, val_new,
+                 has_old, has_new):
+        """Classify + patch one hop's messages against cached rows on the
+        host.
+
+        ``x_rows [R, d * x_multiplier]`` and ``aux`` (dict of ``[R]`` /
+        ``[R, d]`` arrays) are the touched rows' cached state; message
+        ``j`` targets row ``seg[j]`` from vertex ``src[j]`` and carries the
+        contribution transition ``val_old[j] -> val_new[j]``
+        (``has_old``/``has_new`` flag pure adds and deletes).  Returns
+        ``(x', aux', refresh [R])``: rows in ``refresh`` must be
+        re-aggregated instead (their returned patch values are
+        unspecified)."""
+        raise NotImplementedError
+
+    def aggregate_dense(self, stack: np.ndarray, k: int) -> np.ndarray:
+        """Dense per-row form for the vertexwise baseline:
+        ``stack [deg, d] -> x [d * x_multiplier]``."""
+        raise NotImplementedError
+
     def reaggregate(self, vals: torch.Tensor, src: torch.Tensor,
                     seg: torch.Tensor, n_rows: int, k_rows: torch.Tensor):
         """Torch half of :meth:`np_reaggregate` on the tensors' device:
@@ -266,9 +305,16 @@ class AttentionAgg(BoundedRecomputeAgg):
     """Softmax attention over in-neighbours (GAT-style, fixed scoring head):
     ``x_v = sum_u softmax_u(logit(h_u)) * h_u`` with
     ``logit(h) = sum(h)/sqrt(d)``.  Cache per row: the max-logit anchor
-    ``m`` and the normalizer ``z = sum exp(logit - m)``."""
+    ``m`` (a stale-safe upper bound on every in-neighbour's logit) and the
+    normalizer ``z = sum exp(logit - m)``.  Patches rescale the cached mass
+    by ``exp(m - m')`` and add/subtract message terms; REFRESH fires on
+    normalizer collapse (the delete-the-dominant-logit case), where the
+    cancellation would destroy float32 precision."""
 
+    rescale_bound: float = 60.0  # exp() underflow horizon for the rescale
     zmin: float = 1e-12          # absolute normalizer floor
+    zrel: float = 1e-3           # z' below this fraction of the absolute
+    #                              patched mass -> catastrophic cancellation
 
     @property
     def aux_names(self) -> tuple[str, ...]:
@@ -298,6 +344,57 @@ class AttentionAgg(BoundedRecomputeAgg):
         x[nz] /= z[nz, None]
         x[~nz] = 0.0
         return x, {"m": m, "z": z}
+
+    def np_patch(self, x_rows, aux, k_rows, seg, src, val_old, val_new,
+                 has_old, has_new):
+        R, _ = x_rows.shape
+        m, z = aux["m"], aux["z"]
+        l_new = np.where(has_new, self.logits(val_new), -np.inf)
+        l_old = np.where(has_old, self.logits(val_old), -np.inf)
+        m2 = m.copy()
+        np.maximum.at(m2, seg, l_new)
+        mf = np.where(np.isfinite(m2), m2, 0.0)
+        # old-mass rescale: m only ever grows, so factor <= 1; below the
+        # rescale bound the old mass is < e^-60 of the new and underflow to
+        # 0 is exact at float32 (masked subtract: -inf anchors on both
+        # sides would make a nan that the where() discards anyway)
+        fin = np.isfinite(m2) & np.isfinite(m)
+        dm = np.full_like(m2, -np.inf)
+        np.subtract(m, m2, out=dm, where=fin)
+        factor = np.where(fin,
+                          np.exp(np.maximum(dm, -self.rescale_bound)),
+                          0.0).astype(np.float32)
+        e_new = np.where(has_new, np.exp(np.minimum(l_new - mf[seg], 0.0)),
+                         0.0).astype(np.float32)
+        e_old = np.where(has_old,
+                         np.exp(np.minimum(l_old - mf[seg],
+                                           self.rescale_bound)),
+                         0.0).astype(np.float32)
+        z_base = z * factor
+        dz = np.zeros(R, dtype=np.float32)
+        np.add.at(dz, seg, e_new - e_old)
+        adz = np.zeros(R, dtype=np.float32)
+        np.add.at(adz, seg, e_new + e_old)
+        z2 = z_base + dz
+        N2 = x_rows * z_base[:, None]
+        dN = np.zeros_like(x_rows)
+        np.add.at(dN, seg,
+                  e_new[:, None] * np.where(has_new[:, None], val_new, 0.0)
+                  - e_old[:, None] * np.where(has_old[:, None], val_old, 0.0))
+        N2 += dN
+        touched = np.zeros(R, dtype=bool)
+        touched[seg] = True
+        refresh = touched & ((z2 <= self.zmin)
+                             | (z2 < self.zrel * (z_base + adz)))
+        x2 = np.where((z2 > 0)[:, None],
+                      N2 / np.maximum(z2, self.zmin)[:, None], 0.0)
+        return x2, {"m": m2, "z": z2}, refresh
+
+    def aggregate_dense(self, stack, k):
+        lg = self.logits(stack)
+        m = lg.max()
+        e = np.exp(lg - m)
+        return (e[:, None] * stack).sum(axis=0) / e.sum()
 
     def reaggregate(self, vals, src, seg, n_rows, k_rows):
         d = vals.shape[1]
@@ -329,7 +426,10 @@ class AttentionAgg(BoundedRecomputeAgg):
 class TopKAgg(BoundedRecomputeAgg):
     """Per-dim sum of the top-k in-neighbour values.  Cache per (row, dim):
     the admission threshold ``theta`` = current k-th largest value (-inf
-    when deg < k)."""
+    when deg < k).  A message strictly below theta on its new side and
+    strictly below it on its old side cannot change the top-k set, so its
+    PATCH is a no-op; anything touching the admission boundary is a
+    REFRESH."""
 
     kk: int = 3
 
@@ -345,6 +445,21 @@ class TopKAgg(BoundedRecomputeAgg):
         x, theta = _np_topk_passes(vals, seg, n_rows, self.kk)
         return x, {"theta": theta}
 
+    def np_patch(self, x_rows, aux, k_rows, seg, src, val_old, val_new,
+                 has_old, has_new):
+        R = x_rows.shape[0]
+        thm = aux["theta"][seg]
+        hit = ((has_new[:, None] & (val_new > thm))
+               | (has_old[:, None] & (val_old >= thm)))
+        refresh = np.zeros(R, dtype=bool)
+        if seg.size:
+            np.logical_or.at(refresh, seg, hit.any(axis=1))
+        return x_rows, aux, refresh
+
+    def aggregate_dense(self, stack, k):
+        top = np.sort(stack, axis=0)[::-1][:self.kk]
+        return top.sum(axis=0)
+
     def reaggregate(self, vals, src, seg, n_rows, k_rows):
         x, theta = topk_passes(vals, seg, n_rows, self.kk)
         return x, (theta,)
@@ -359,8 +474,12 @@ class PNAAgg(BoundedRecomputeAgg):
     """PNA tower (mean/std/max + degree scaler): per input dim the
     normalized aggregate is ``[log1p(k)*mean, std, max]`` -- 3 dims per
     input dim (``x_multiplier = 3``).  Cache per row: the moment sums
-    ``s1 = sum h`` and ``s2 = sum h^2`` and the per-dim max ``mx`` with its
-    witness ``mref`` (the largest in-neighbour id among ties)."""
+    ``s1 = sum h`` and ``s2 = sum h^2`` (invertible patches) and the
+    per-dim max ``mx`` with its witness ``mref`` (the largest in-neighbour
+    id among ties; GROW folds, a witness loss is a REFRESH, as is
+    accumulated variance drift)."""
+
+    var_guard: float = 1e-3
 
     @property
     def x_multiplier(self) -> int:
@@ -406,6 +525,43 @@ class PNAAgg(BoundedRecomputeAgg):
         mx, mref = np_segment_extremum(MAX, vals, seg, n_rows, nbr)
         x = self.np_tower(s1, s2, mx, np.asarray(k_rows, dtype=np.float32))
         return x, {"s1": s1, "s2": s2, "mx": mx, "mref": mref}
+
+    def np_patch(self, x_rows, aux, k_rows, seg, src, val_old, val_new,
+                 has_old, has_new):
+        R = x_rows.shape[0]
+        s1, s2 = aux["s1"].copy(), aux["s2"].copy()
+        mx, mref = aux["mx"], aux["mref"]
+        vn = np.where(has_new[:, None], val_new, 0.0)
+        vo = np.where(has_old[:, None], val_old, 0.0)
+        np.add.at(s1, seg, vn - vo)
+        np.add.at(s2, seg, vn * vn - vo * vo)
+        # SHRINK classification against the pre-fold max (the monotonic
+        # family's invariant, resolved here by a whole-row refresh)
+        shrink = (mref[seg] == src[:, None]) & has_old[:, None] \
+            & (~has_new[:, None] | (val_new < mx[seg]))
+        refresh = np.zeros(R, dtype=bool)
+        touched = np.zeros(R, dtype=bool)
+        if seg.size:
+            np.logical_or.at(refresh, seg, shrink.any(axis=1))
+            touched[seg] = True
+        grow = np.where(has_new[:, None], val_new, -np.inf)
+        mx2, mref2 = np_segment_extremum(MAX, grow, seg, R, src,
+                                         base=mx, base_refs=mref)
+        k = np.asarray(k_rows, dtype=np.float32)
+        kk = np.maximum(k, 1.0)[:, None]
+        var = s2 / kk - (s1 / kk) ** 2
+        refresh |= touched & ((var < -self.var_guard).any(axis=1)
+                              | (k <= 0))
+        x2 = self.np_tower(s1, s2, mx2, k)
+        return x2, {"s1": s1, "s2": s2, "mx": mx2, "mref": mref2}, refresh
+
+    def aggregate_dense(self, stack, k):
+        kf = np.float32(max(k, 1))
+        mean = stack.sum(axis=0) / kf
+        std = np.sqrt(np.maximum((stack * stack).sum(axis=0) / kf
+                                 - mean * mean, 0.0))
+        return np.concatenate([np.log1p(np.float32(max(k, 0))) * mean, std,
+                               stack.max(axis=0)])
 
     def moments(self, vals: torch.Tensor, src: torch.Tensor,
                 seg: torch.Tensor, n_rows: int):

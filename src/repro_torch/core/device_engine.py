@@ -1172,6 +1172,12 @@ class DeviceEngine:
         n = self.n
         d0 = int(self.state.H[0].shape[1])
         adds, dels = self.graph.apply_topology(batch.edges)
+        # the mirror refreshes every row the batch touched; the monotonic
+        # propagation takes each edge's net change, as a max would keep
+        # the candidate of an edge added and deleted again
+        touched = adds + dels
+        if self.monotonic:
+            adds, dels = self.graph.net_topology(adds, dels)
         if self.bounded and n:
             self._kmax = max(self._kmax, float(self.graph.in_degree.max()))
         fa = np.array([f.vertex for f in batch.features], dtype=np.int32)
@@ -1201,7 +1207,6 @@ class DeviceEngine:
         dev_batch = BatchDev(ints=_upload(ints, self.device).to(torch.int64),
                              ws=_upload(ws, self.device),
                              feat_val=_upload(pad_to(fx, cap), self.device))
-        touched = adds + dels
         out_rows = np.unique(np.array([e.src for e in touched], np.int64)) \
             if touched else np.empty(0, np.int64)
         in_rows = np.unique(np.array([e.dst for e in touched], np.int64)) \

@@ -4,12 +4,16 @@ The static-graph baseline (paper §2.1): each layer aggregates over *all*
 edges with one segment reduction and applies the UPDATE to *all* vertices.
 It bootstraps the engine state (H^0..H^L, S^1..S^L) before streaming
 updates arrive, and serves as the exact oracle for the incremental
-engines.  It runs on the device that ``x`` lies on.
+engines.  It runs on the device that ``x`` lies on.  The invertible
+family's segment-sum is the ``segment_mm`` kernel (the plain version on the
+CPU), over a CSR built once per pass.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.segment_mm import coo_to_csr, segment_mm_csr
 
 from .workloads import Workload
 
@@ -24,24 +28,21 @@ def _reaggregate_all(workload: Workload, h: torch.Tensor, src: torch.Tensor,
 
 
 def aggregate_all(workload: Workload, h: torch.Tensor, src: torch.Tensor,
-                  dst: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
-    """One segment reduction over all edges, per the workload's aggregator:
-    segment-sum of w_uv * h[u] for the invertible family, segment-max/min
-    of h[u] for the monotonic family (empty rows hold the aggregator
-    identity, +/-inf), and the aggregator's own reaggregation for the
-    bounded family (whose S stores the normalized aggregate directly)."""
+                  dst: torch.Tensor, n: int) -> torch.Tensor:
+    """One segment reduction over all edges for the families that are not
+    invertible: segment-max/min of h[u] for the monotonic family (empty
+    rows hold the aggregator identity, +/-inf), and the aggregator's own
+    reaggregation for the bounded family (whose S stores the normalized
+    aggregate directly).  The invertible family's weighted segment-sum is
+    :func:`segment_mm_csr`."""
     agg = workload.agg
     if agg.algebra == "bounded":
         return _reaggregate_all(workload, h, src, dst, n)[0]
-    if agg.algebra == "monotonic":
-        out = torch.full((n, h.shape[1]), agg.identity, dtype=h.dtype,
-                         device=h.device)
-        lanes = dst[:, None].expand(-1, h.shape[1])
-        return out.scatter_reduce_(0, lanes, h[src],
-                                   "amax" if agg.sign > 0 else "amin")
-    msgs = h[src] * w[:, None]
-    return torch.zeros((n, h.shape[1]), dtype=h.dtype,
-                       device=h.device).index_add_(0, dst, msgs)
+    out = torch.full((n, h.shape[1]), agg.identity, dtype=h.dtype,
+                     device=h.device)
+    lanes = dst[:, None].expand(-1, h.shape[1])
+    return out.scatter_reduce_(0, lanes, h[src],
+                               "amax" if agg.sign > 0 else "amin")
 
 
 @torch.no_grad()
@@ -76,19 +77,29 @@ def full_inference(workload: Workload, params: list, x: torch.Tensor,
     """
     dev = x.device
     n = x.shape[0]
-    src_t = torch.as_tensor(np.asarray(src, dtype=np.int64), device=dev)
-    dst_t = torch.as_tensor(np.asarray(dst, dtype=np.int64), device=dev)
-    if workload.spec.weighted:
-        w_t = torch.as_tensor(np.asarray(w, dtype=np.float32), device=dev)
+    if workload.agg.algebra == "invertible":
+        if not workload.spec.weighted:
+            # edge weights are an edge *property*; only the weighted-sum
+            # aggregator consumes them (sum/mean treat every edge as 1)
+            w = np.ones(len(src), dtype=np.float32)
+        # every layer aggregates over the same edges: one CSR for the pass
+        csr = coo_to_csr(np.asarray(src, dtype=np.int64),
+                         np.asarray(dst, dtype=np.int64),
+                         np.asarray(w, dtype=np.float32), n, dev)
+
+        def aggregate(h):
+            return segment_mm_csr(csr, h)
     else:
-        # edge weights are an edge *property*; only the weighted-sum
-        # aggregator consumes them (sum/mean treat every edge as 1)
-        w_t = torch.ones(src_t.shape[0], dtype=x.dtype, device=dev)
+        src_t = torch.as_tensor(np.asarray(src, dtype=np.int64), device=dev)
+        dst_t = torch.as_tensor(np.asarray(dst, dtype=np.int64), device=dev)
+
+        def aggregate(h):
+            return aggregate_all(workload, h, src_t, dst_t, n)
     k = torch.as_tensor(np.asarray(in_degree, dtype=np.float32), device=dev)
     H = [x]
     S = [torch.zeros((0,), dtype=x.dtype, device=dev)]
     for l in range(workload.spec.n_layers):
-        s_l = aggregate_all(workload, H[l], src_t, dst_t, w_t, n)
+        s_l = aggregate(H[l])
         H.append(params[l](H[l], workload.normalize(s_l, k)))
         S.append(s_l)
     return H, S

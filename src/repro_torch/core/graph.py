@@ -222,6 +222,41 @@ class DynamicGraph:
                     dels.append(EdgeUpdate(e.src, e.dst, False, w))
         return adds, dels
 
+    def net_topology(self, adds: list[EdgeUpdate], dels: list[EdgeUpdate]
+                     ) -> tuple[list[EdgeUpdate], list[EdgeUpdate]]:
+        """The net effect on each edge of one batch's effective updates
+        (``apply_topology``'s result, applied already): an edge the batch
+        added and deleted again, absent before and after, drops out; one
+        present before and after keeps its first delete (the stored weight)
+        and its last add; otherwise its last add or first delete stands.
+        The invertible algebra cancels an add and a delete of one edge by
+        itself; a max, or a cached maximum, would keep a transient edge's
+        candidate.  Order within each list is kept."""
+        twice = {(e.src, e.dst) for e in adds} & {(e.src, e.dst) for e in dels}
+        if not twice:
+            return adds, dels
+        n_add: dict = {}
+        n_del: dict = {}
+        for e in adds:
+            n_add[(e.src, e.dst)] = n_add.get((e.src, e.dst), 0) + 1
+        for e in dels:
+            n_del[(e.src, e.dst)] = n_del.get((e.src, e.dst), 0) + 1
+        net_adds, net_dels, seen = [], [], {}
+        for e in adds:
+            k = (e.src, e.dst)
+            seen[k] = seen.get(k, 0) + 1
+            if k not in twice or (seen[k] == n_add[k] and self.has_edge(*k)):
+                net_adds.append(e)
+        seen = {}
+        for e in dels:
+            k = (e.src, e.dst)
+            seen[k] = seen.get(k, 0) + 1
+            after = self.has_edge(*k)
+            before = n_del[k] > n_add[k] or (n_del[k] == n_add[k] and after)
+            if k not in twice or (seen[k] == 1 and before):
+                net_dels.append(e)
+        return net_adds, net_dels
+
     # -- export ----------------------------------------------------------
     def csr_out(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         return self.out.to_csr()

@@ -63,6 +63,19 @@ class InferenceState:
             eps = np.zeros(workload.spec.n_layers + 1, dtype=np.float32)
         return cls(H=H, S=S, k=graph.in_degree.copy(), C=C, A=A, eps=eps)
 
+    def clone(self) -> "InferenceState":
+        """A deep copy: every array copied, nothing shared."""
+        return InferenceState(H=[h.copy() for h in self.H],
+                              S=[s.copy() for s in self.S],
+                              k=self.k.copy(),
+                              C=None if self.C is None
+                              else [c.copy() for c in self.C],
+                              A=None if self.A is None
+                              else [{k_: v.copy() for k_, v in a.items()}
+                                    for a in self.A],
+                              eps=None if self.eps is None
+                              else self.eps.copy())
+
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     # a fresh writable array: the engines update host state in place

@@ -21,11 +21,14 @@ Each family's UPDATE is an ``nn.Module`` whose parameter names equal the
 reference's parameter-dict keys, so weights made by either package load
 into the other (:func:`params_from_numpy`).  The weights that read x
 (``w``, ``w_nbr``, ``w1``) are ``agg.x_multiplier`` times as wide as the
-layer's input, as PNA's tower needs.
+layer's input, as PNA's tower needs.  The host engines (``core/engine.py``)
+run the same UPDATE bodies over NumPy on the parameter dicts of
+``state.params_to_numpy`` (:data:`NP_UPDATE`, :meth:`Workload.update_fn`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -86,9 +89,30 @@ class GinLayer(nn.Module):
         return out if self.last else torch.relu(out)
 
 
-# the one family table: every engine derives its UPDATE from these entries
+# the family table: the device engine and the full pass run these modules
 FAMILY_UPDATE = {"gc": GraphConvLayer, "sage": SageLayer, "gin": GinLayer}
 _FAMILY_SELF_DEP = {"gc": False, "sage": True, "gin": True}
+
+
+def _gc_update(p, h_prev, x, *, last: bool):
+    out = x @ p["w"] + p["b"]
+    return out if last else np.maximum(out, 0.0)
+
+
+def _sage_update(p, h_prev, x, *, last: bool):
+    out = h_prev @ p["w_self"] + x @ p["w_nbr"] + p["b"]
+    return out if last else np.maximum(out, 0.0)
+
+
+def _gin_update(p, h_prev, x, *, last: bool):
+    z = (1.0 + p["eps"]) * h_prev + x
+    out = np.maximum(z @ p["w1"] + p["b1"], 0.0) @ p["w2"] + p["b2"]
+    return out if last else np.maximum(out, 0.0)
+
+
+# the same bodies over NumPy, for the host engines: (params_l, h_prev, x)
+# -> h_l with params_l one dict of ``params_to_numpy``
+NP_UPDATE = {"gc": _gc_update, "sage": _sage_update, "gin": _gin_update}
 
 
 @dataclass(frozen=True)
@@ -142,6 +166,13 @@ class Workload:
     def normalize(self, S: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         """Aggregate normalization x = norm(S, k)."""
         return self.agg.normalize(S, k)
+
+    def update_fn(self, layer: int):
+        """The layer's UPDATE over NumPy, ``(params_l, h_prev, x) -> h``,
+        for the host engines (the device and the full pass run the layer
+        modules)."""
+        return partial(NP_UPDATE[self.family],
+                       last=layer == self.spec.n_layers - 1)
 
 
 def params_from_numpy(workload: Workload, params_np: list[dict],

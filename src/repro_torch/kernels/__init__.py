@@ -13,4 +13,6 @@ with ``nvcc`` at first use.
                  h = act(finite(S')W + b)
     embedding_bag  sum-mode bag gather: out[b] = sum_h table[idx[b, h]]
                  (PNA's first moment in the bounded device hop)
+    segment_mm   weighted CSR SpMM: out[v] = sum_(u,v) w_uv x[u] (the full
+                 pass's invertible aggregation)
 """

@@ -8,9 +8,11 @@ registry.  Runs on the card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.stream --engine device \
         --workload gc-s --n 2000 --updates 3000 --batch-size 100
 
-``--workload`` takes the five invertible workloads, the monotonic
-``gs-max`` / ``gc-min`` and the bounded ``ga-s`` / ``gp-m``;
-``--tolerance`` (bounded only) turns on the certified approximate mode.
+``--engine`` takes ripple, rc, vertexwise, device and full (dist and
+dist-rc are not ported yet); ``--workload`` takes the five invertible
+workloads, the monotonic ``gs-max`` / ``gc-min`` and the bounded ``ga-s`` /
+``gp-m``; ``--tolerance`` (bounded workloads on ripple and device) turns on
+the certified approximate mode.
 """
 from __future__ import annotations
 

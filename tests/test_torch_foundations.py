@@ -158,6 +158,8 @@ import repro_torch, repro_torch.api, repro_torch.launch.stream
 import repro_torch.core.device_engine
 import repro_torch.kernels.delta_apply, repro_torch.kernels.mlp_apply
 import repro_torch.kernels.extremum_apply, repro_torch.kernels.embedding_bag
+import repro_torch.kernels.segment_mm, repro_torch.core.engine
+import repro_torch.core.vertexwise
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m in ("jax", "repro") or m.startswith(("jax.", "repro.")))]
 assert not bad, bad

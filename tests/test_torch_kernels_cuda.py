@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on a card,
 at the shapes of tests/test_kernels.py plus a main-path shape, with its
 bars (1e-5 on S', 1e-4 on h; extremum_apply's S' bit-equal; embedding_bag
-1e-5 in fp32, 2e-2 in bf16).  Imports no JAX, so it runs where only
+1e-5 in fp32, 2e-2 in bf16; segment_mm 2e-5 in fp32, 2e-2 in bf16, and
+1e-5 of the sum of the terms' magnitudes on a hub row).  Imports no JAX, so it runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -19,6 +20,9 @@ from repro_torch.kernels.extremum_apply import extremum_apply
 from repro_torch.kernels.extremum_apply.ref import extremum_apply_ref
 from repro_torch.kernels.mlp_apply import mlp_apply
 from repro_torch.kernels.mlp_apply.ref import mlp_apply_ref
+from repro_torch.kernels.segment_mm import (coo_to_csr, segment_mm,
+                                            segment_mm_csr)
+from repro_torch.kernels.segment_mm.ref import segment_mm_ref
 
 S_TOL = dict(atol=1e-5, rtol=1e-5)
 H_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -192,3 +196,74 @@ def test_embedding_bag_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         embedding_bag(table, idx, padding_idx=10)
     assert embedding_bag.launches == before
+
+
+def _graph(rng, n, m, hub=0):
+    """m random edges over n vertices (some rows empty, some edges
+    repeated), plus ``hub`` more into vertex 0."""
+    src = rng.integers(0, n, size=m + hub)
+    dst = np.concatenate([rng.integers(1, n, size=m), np.zeros(hub, int)])
+    w = rng.uniform(0.5, 1.5, size=m + hub).astype(np.float32)
+    return src, dst, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d", [(100, 400, 32), (257, 1500, 64),
+                                   (64, 300, 128), (300, 2000, 16),
+                                   (1000, 5000, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_mm_kernel_on_card(cuda, n, m, d, dtype):
+    rng = np.random.default_rng(0)
+    src, dst, w = _graph(rng, n, m)
+    x = torch.as_tensor(_rand(rng, n, d), device=cuda).to(dtype)
+    csr = coo_to_csr(src, dst, w, n, cuda)
+    before = segment_mm.launches
+    out = segment_mm_csr(csr, x)
+    ref = segment_mm_ref(csr.col, csr.row, csr.w, x, n)
+    again = segment_mm(src, dst, w, x, n)
+    torch.cuda.synchronize()
+    assert segment_mm.launches == before + 2
+    assert out.dtype == dtype and torch.equal(out, again)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))   # no in-edges
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 40])
+def test_segment_mm_hub_row_on_card(cuda, d):
+    """A row of 120,000 in-edges (the arxiv-scale hub) summed in spans:
+    within 1e-5 of the sum of its terms' magnitudes, per cell, of the plain
+    version, and the same bits in every run."""
+    rng = np.random.default_rng(2)
+    n = 5000
+    src, dst, w = _graph(rng, n, 20000, hub=120_000)
+    x = torch.as_tensor(_rand(rng, n, d), device=cuda)
+    csr = coo_to_csr(src, dst, w, n, cuda)
+    assert csr.long_rows.tolist() == [0] and csr.n_spans > 100
+    out = segment_mm_csr(csr, x)
+    ref = segment_mm_ref(csr.col, csr.row, csr.w, x, n)
+    mag = segment_mm_ref(csr.col, csr.row, csr.w.abs(), x.abs(), n)
+    torch.cuda.synchronize()
+    assert bool(((out - ref).abs() <= 1e-5 * mag + 1e-30).all())
+    assert torch.equal(segment_mm_csr(csr, x), out)
+
+
+@pytest.mark.cuda
+def test_segment_mm_refuses_what_the_kernel_does_not_take(cuda):
+    rng = np.random.default_rng(3)
+    src, dst, w = _graph(rng, 50, 200)
+    csr = coo_to_csr(src, dst, w, 50, cuda)
+    x = torch.zeros(50, 8, device=cuda)
+    before = segment_mm.launches
+    with pytest.raises(TypeError):
+        segment_mm_csr(csr, x.half())
+    with pytest.raises(ValueError):
+        segment_mm_csr(csr, x.t())
+    with pytest.raises(ValueError):
+        segment_mm_csr(csr, x[:10])
+    with pytest.raises(ValueError):
+        segment_mm_csr(csr, x.cpu())
+    with pytest.raises(ValueError):
+        segment_mm_csr(coo_to_csr(src, dst, w, 50, "cpu"), x)
+    assert segment_mm.launches == before

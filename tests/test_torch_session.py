@@ -1,6 +1,7 @@
 """The port's serving API on the CPU: ``bootstrap -> ingest -> query /
 predict`` against the JAX package's session on the same graph, weights
-and stream, hot swap device <-> full, and the registry surface."""
+and stream, hot swap device <-> full, and the registry surface (the host
+engines' sessions are in tests/test_torch_host_oracle.py)."""
 import numpy as np
 import pytest
 
@@ -111,12 +112,16 @@ def test_registry_surface_matches_reference():
         == ref_engine_names(canonical_only=False)
     assert set(engine_options("device")) \
         == set(ref_engine_options("device")) | {"device"}
+    for name in ("ripple", "rc"):
+        assert set(engine_options(name)) == set(ref_engine_options(name))
+    assert set(engine_options("vertexwise")) \
+        == set(ref_engine_options("vertexwise")) | {"device"}
     wl = t_make_workload("gc-s", n_layers=2, d_in=4, d_hidden=4, n_classes=2)
     with pytest.raises(KeyError, match="device"):
         make_engine("nope", wl, [], None, None)
     with pytest.raises(TypeError, match="does not accept"):
         make_engine("full", wl, [], None, None, mesh=object())
-    for name in ("ripple", "rp", "rc", "vertexwise", "dist", "dist-rc"):
+    for name in ("dist", "dist-rc"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make_engine(name, wl, [], None, None, tolerance=0.0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
