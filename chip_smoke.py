@@ -8,7 +8,9 @@ with nvcc (into build/kernels/), one nvcc per source, all at once.
 Phase 2 holds each kernel against its plain PyTorch version at the main
 path's shapes and at the ragged shapes of tests/test_kernels.py, and times
 both (embedding_bag also against F.embedding_bag, segment_mm against
-torch.sparse.mm over the same CSR: library yardsticks).
+torch.sparse.mm over the same CSR, flash_attention against
+F.scaled_dot_product_attention: library yardsticks); flash_attention is
+also timed at phi4-mini's prefill shape in bf16 and fp32.
 Phase 3 drives the port's main paths, one ``device``-engine session each
 -- gc-s (delta_apply), gi-s (mlp_apply), the monotonic gs-max and gc-min
 (extremum_apply), and the bounded-recompute gp-m (embedding_bag) and ga-s
@@ -36,6 +38,19 @@ hold their final H against a ``device``-engine session over the same
 batches; and a ``ripple``-engine gc-s session (host NumPy, bootstrapped on
 the card) runs 10 batches against the oracle, its rates labelled as the
 host's.
+Phase 4 serves a language model: phi4-mini-3.8b at its published width
+and depth (32 layers, d_model 3072, 24 query and 8 kv heads of 128, d_ff
+8192, vocab 200064; 4.45 B parameters in bf16, random from a seed)
+answers 4 prompts of 2048 tokens with 32 greedy tokens each, through
+``make_prefill_step``/``make_decode_step``, twice (a warm-up, then timed).
+Every prefill layer's attention is the flash_attention kernel: its launch
+count, set to 0 before the two requests and read after, must be 32 per
+prefill.  One prefill and 4 decode steps run under torch.profiler (device
+busy share, attention share of the prefill).  Then, in fp32 (17.8 GB of
+parameters), the prefill logits with the kernel must be within relative
+L2 1e-5 of the same model with the plain attention, and the logits of
+decode step 4 within 1e-5 of a re-prefill of the prompt and the tokens
+generated so far; in bf16 both must be within 5e-2 (LM_BARS).
 
 Any fault ends the run with a traceback and a non-zero exit; nothing is
 caught.  Without a CUDA card, or without the repository beside this file,
@@ -44,7 +59,8 @@ line (nvidia-smi's name and power limit), the kernels JSON line and the
 device JSON line.
 
 Precision: TF32 is off for matmuls and cuDNN, so the SAGE self term, the
-bootstrap and the oracle run in full fp32, as the 2e-3 and 1e-4 bars need.
+bootstrap, the oracle and the LM's fp32 checks run in full fp32, as the
+2e-3, 1e-4 and 1e-5 bars need.
 """
 from __future__ import annotations
 
@@ -62,6 +78,7 @@ ROOT = Path(__file__).resolve().parent
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12     # H100 SXM bf16 tensor cores, dense
 S_TOL = dict(atol=1e-5, rtol=1e-5)   # tests/test_kernels.py bars (extremum
 #                                      S' is held bit-equal instead)
 H_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -79,6 +96,19 @@ N_FULL_BATCHES = 5           # batches of the full-engine sessions
 N_RIPPLE_BATCHES = 10        # batches of the host ripple session
 SEG_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),   # tests/test_kernels.py
            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+FLASH_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4),  # tests/test_kernels.py
+             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# phi4-mini's prefill attention: batch 4, prompt 2048, 24 query heads over
+# 8 kv heads of 128
+PREFILL = dict(B=4, S=2048, H=24, Hkv=8, Dh=128)
+LM = dict(arch="phi4-mini-3.8b", batch=4, prompt=2048, tokens=32,
+          checked_steps=4)
+# relative L2 bars of the LM's logits, kernel against plain attention and
+# decode against a re-prefill.  fp32: the two attentions compute one
+# function, so what is left is summation order.  bf16: the same function
+# rounded to bf16 (2^-8) at every layer of 32; on an NVIDIA H100 80GB HBM3
+# (700 W) it measures 0.023, and the bar is about twice that.
+LM_BARS = {"float32": 1e-5, "bfloat16": 5e-2}
 
 
 def log(*parts) -> None:
@@ -103,9 +133,10 @@ def device_ms(fn, iters: int = 25, warmup: int = 3) -> float:
                              for i in range(iters))
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -397,6 +428,92 @@ def check_embedding_bag(seed: int, V: int, B: int, hot: int, d: int,
                 ids, table, mode="sum", padding_idx=pad)),
             bound_ms=b_ms, bound_by=b_by)
     return row
+
+
+def flash_work(B: int, S: int, H: int, Hkv: int, Dh: int,
+               elem: int) -> tuple[int, int]:
+    """(bytes, flops): reads q, k, v once and writes out once; two products
+    of 2*Dh flops over the S(S+1)/2 causal (query, key) pairs of each query
+    head."""
+    return (elem * 2 * B * S * Dh * (H + Hkv),
+            4 * B * H * Dh * (S * (S + 1) // 2))
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def check_flash(seed: int, B: int, S: int, H: int, Hkv: int, Dh: int,
+                dtype, *, timed: bool) -> dict:
+    """flash_attention against its plain version on N(0, 1) inputs at
+    tests/test_kernels.py's bars.  Timed: with the library yardstick,
+    F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) on
+    the same inputs in its [B, H, S, Dh] layout, held to the plain version
+    at relative L2 2e-2 (it computes the same function)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = torch.randn((B, S, H, Dh), generator=g, device=DEVICE).to(dtype)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=DEVICE).to(dtype)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device=DEVICE).to(dtype)
+
+    def kernel():
+        return flash_attention(q, k, v)
+
+    def plain():
+        return flash_attention_ref(q, k, v)
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
+    row = dict(kernel="flash_attention", B=B, S=S, H=H, Hkv=Hkv, Dh=Dh,
+               dtype=str(dtype),
+               max_abs_err=(out.float() - ref.float()).abs().max().item(),
+               rel_l2=rel_l2(out, ref))
+    if timed:
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        lib_err = rel_l2(library().transpose(1, 2), ref)
+        if lib_err > 2e-2:
+            raise AssertionError(f"the SDPA yardstick differs from the plain "
+                                 f"version by relative L2 {lib_err}")
+        nbytes, flops = flash_work(B, S, H, Hkv, Dh, q.element_size())
+        b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS
+                              if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
+        row.update(ms=device_ms(kernel), plain_ms=device_ms(plain, iters=10),
+                   library_ms=device_ms(library), library_rel_l2=lib_err,
+                   bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
+    return row
+
+
+def phase_flash() -> list[dict]:
+    """flash_attention against its plain version: tests/test_kernels.py's
+    shapes and a ragged one in both dtypes, then timed at the prefill
+    shape (bf16 and fp32), at a ragged S and at one query head per kv
+    head."""
+    rows = []
+    for B, S, H, Hkv, Dh in ((2, 64, 4, 2, 16), (1, 128, 8, 8, 32),
+                             (2, 96, 6, 2, 8), (1, 256, 4, 1, 64),
+                             (2, 97, 6, 2, 16)):
+        for dtype in (torch.float32, torch.bfloat16):
+            rows.append(check_flash(len(rows), B, S, H, Hkv, Dh, dtype,
+                                    timed=False))
+    P = PREFILL
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(check_flash(len(rows), *P.values(), dtype, timed=True))
+    rows.append(check_flash(len(rows), P["B"], P["S"] + 31, P["H"], P["Hkv"],
+                            P["Dh"], torch.bfloat16, timed=True))
+    rows.append(check_flash(len(rows), P["B"], P["S"], P["Hkv"], P["Hkv"],
+                            P["Dh"], torch.bfloat16, timed=True))
+    for row in rows:
+        log("kernel_check", json.dumps(row))
+    return rows
 
 
 def phase_kernels() -> list[dict]:
@@ -911,6 +1028,209 @@ def run_ripple_session(counters: dict) -> dict:
     return result
 
 
+def generate(prefill, decode, params, prompts, n_tokens: int):
+    """One request through the serving steps: prefill, then greedy decode
+    to ``n_tokens`` tokens a sequence.  Returns (tokens [B, n_tokens], the
+    logits of each decode step, prefill ms, per-step decode ms); each step
+    ends in a synchronise, as a server that hands tokens out would."""
+    S = prompts.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, prompts)
+    tok = logits[:, -1].argmax(-1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out, step_logits, step_ms = [tok], [], []
+    for i in range(n_tokens - 1):
+        t0 = time.perf_counter()
+        lg, caches = decode(params, caches, tok, S + i)
+        tok = lg.argmax(-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(tok)
+        step_logits.append(lg)
+    return torch.stack(out, 1), step_logits, prefill_ms, step_ms
+
+
+def profile_lm(prefill, decode, params, prompts, n_steps: int) -> dict:
+    """One prefill and ``n_steps`` decode steps under torch.profiler: each
+    one's device busy share (device time over wall time, which the
+    profiler's own host cost inflates) and device operations, and the
+    flash_attention kernel's share of the prefill's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in dev) * 1e-6
+        attn = sum(e.self_device_time_total for e in dev
+                   if "flash_kernel" in e.key) * 1e-6
+        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+        return dict(wall_ms=wall * 1e3, device_busy_ms=busy * 1e3,
+                    device_busy_share=busy / wall if dev else None,
+                    device_ops=sum(e.count for e in dev),
+                    attention_share=attn / busy if busy else None,
+                    top=[[e.key[:60], e.self_device_time_total / 1e3,
+                          e.count] for e in top])
+
+    S = prompts.shape[1]
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["caches"] = prefill(params, prompts)
+
+    def run_decode():
+        tok = state["logits"][:, -1].argmax(-1)
+        caches = state["caches"]
+        for i in range(n_steps):
+            lg, caches = decode(params, caches, tok, S + i)
+            tok = lg.argmax(-1)
+
+    run_prefill()
+    torch.cuda.synchronize()
+    run_decode()            # warm the decode path outside the window
+    run_prefill()
+    return dict(prefill=window(run_prefill),
+                decode=dict(steps=n_steps, **window(run_decode)))
+
+
+def lm_checks(cfg, prefill, params, prompts, tokens, step_logits, *,
+              label: str) -> dict:
+    """The prefill logits with the kernel against the same model with the
+    plain attention, and the logits of decode step ``checked_steps``
+    against a re-prefill (kernel) of the prompt and the tokens generated
+    up to it; relative L2 of each."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.lm.steps import make_prefill_step
+    t = LM["checked_steps"]
+    kern, _ = prefill(params, prompts)
+    plain, _ = make_prefill_step(cfg, attention=flash_attention_ref)(
+        params, prompts)
+    again, _ = make_prefill_step(cfg)(
+        params, torch.cat([prompts, tokens[:, :t]], dim=1))
+    for name, x in (("kernel", kern), ("plain", plain), ("again", again)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{label}: {name} prefill logits are not "
+                                 f"finite")
+    return dict(kernel_vs_plain=rel_l2(kern, plain),
+                decode_vs_reprefill=rel_l2(step_logits[t - 1],
+                                           again[:, -1]),
+                reprefill_len=prompts.shape[1] + t)
+
+
+def run_lm(counters: dict) -> dict:
+    """Phase 4: phi4-mini-3.8b at full width and depth, served on the card
+    (see the module's docstring).  Returns the flash_attention launches of
+    the two requests and the numbers printed."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm.model import init_params
+    from repro_torch.models.lm.steps import make_decode_step, make_prefill_step
+    cfg = get_arch(LM["arch"]).CONFIG
+    B, S, T = LM["batch"], LM["prompt"], LM["tokens"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg, DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [t for blk in (params, params["dense_blocks"],
+                            params["dense_blocks"]["attn"],
+                            params["dense_blocks"]["mlp"])
+              for t in blk.values() if isinstance(t, torch.Tensor)]
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                            device=DEVICE)
+    prefill = make_prefill_step(cfg, max_seq=S + T)
+    decode = make_decode_step(cfg)
+
+    # ---- the main path: a warm-up request, then the timed one ------------
+    for fn in counters.values():
+        fn.launches = 0
+    generate(prefill, decode, params, prompts, T)
+    first = counters["flash_attention"].launches
+    tokens, step_logits, prefill_ms, step_ms = generate(
+        prefill, decode, params, prompts, T)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if (first, launches["flash_attention"]) != (cfg.n_layers,
+                                                2 * cfg.n_layers) \
+            or sum(launches.values()) != launches["flash_attention"]:
+        raise AssertionError(f"lm: {first} flash_attention launches in the "
+                             f"first request and {launches} after the "
+                             f"second; each prefill of {cfg.n_layers} "
+                             f"layers must launch it {cfg.n_layers} times "
+                             f"and no other kernel")
+    peak_bf16 = torch.cuda.max_memory_allocated()
+    if tokens.shape != (B, T) or not bool(((tokens >= 0)
+                                           & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"lm: generated tokens {tuple(tokens.shape)} "
+                             f"outside the vocabulary")
+    profiled = profile_lm(prefill, decode, params, prompts, 4)
+    bf16 = lm_checks(cfg, prefill, params, prompts, tokens, step_logits,
+                     label="bf16")
+    sample = tokens[0, :8].tolist()
+    del params, step_logits
+    torch.cuda.empty_cache()
+
+    # ---- fp32 at full width and depth --------------------------------------
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    t = LM["checked_steps"]
+    params = init_params(torch.Generator(device=DEVICE).manual_seed(0),
+                         cfg32, DEVICE)
+    prefill32 = make_prefill_step(cfg32, max_seq=S + t + 1)
+    toks32, logits32, _, _ = generate(prefill32, make_decode_step(cfg32),
+                                      params, prompts, t + 1)
+    fp32 = lm_checks(cfg32, prefill32, params, prompts, toks32, logits32,
+                     label="fp32")
+    peak_fp32 = torch.cuda.max_memory_allocated()
+    del params, logits32
+    torch.cuda.empty_cache()
+    for dtype, checks in (("bfloat16", bf16), ("float32", fp32)):
+        for key in ("kernel_vs_plain", "decode_vs_reprefill"):
+            if checks[key] > LM_BARS[dtype]:
+                raise AssertionError(f"lm {dtype}: {key} relative L2 "
+                                     f"{checks[key]} > {LM_BARS[dtype]}")
+
+    decode_ms = statistics.mean(step_ms)
+    result = dict(
+        arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim,
+        d_ff=cfg.d_ff, vocab=cfg.vocab, dtype=cfg.param_dtype, batch=B,
+        prompt=S, tokens=T, params=n_params, param_bytes=param_bytes,
+        init_s=init_s, launches=launches, prefill_ms=prefill_ms,
+        prefill_tok_per_s=B * S / (prefill_ms * 1e-3),
+        decode_ms_per_token=decode_ms, decode_ms=step_ms,
+        generated_tok_per_s=B * (T - 1) / (sum(step_ms) * 1e-3),
+        peak_gb_bf16=peak_bf16 / 1e9, peak_gb_fp32_checks=peak_fp32 / 1e9,
+        profiled=profiled, bf16=bf16, fp32=fp32, sample=sample)
+    log(f"lm: {n_params} parameters ({param_bytes / 1e9:.3f} GB bf16), peak "
+        f"{peak_bf16 / 1e9:.3f} GB; prefill {prefill_ms:.3f} ms "
+        f"({result['prefill_tok_per_s']:.0f} prompt tok/s); decode "
+        f"{decode_ms:.3f} ms/token ({result['generated_tok_per_s']:.1f} "
+        f"generated tok/s); device busy: prefill "
+        f"{profiled['prefill']['device_busy_share']:.3f}, decode "
+        f"{profiled['decode']['device_busy_share']:.3f}; attention "
+        f"{profiled['prefill']['attention_share']:.3f} of the prefill's "
+        f"device time")
+    log(f"lm relative L2: kernel vs plain attention bf16 "
+        f"{bf16['kernel_vs_plain']}, fp32 {fp32['kernel_vs_plain']}; decode "
+        f"vs re-prefill bf16 {bf16['decode_vs_reprefill']}, fp32 "
+        f"{fp32['decode_vs_reprefill']}")
+    log("lm_session", json.dumps(result))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -925,6 +1245,7 @@ def main() -> int:
     from repro_torch.kernels.delta_apply import delta_apply
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.extremum_apply import extremum_apply
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mlp_apply import mlp_apply
     from repro_torch.kernels.segment_mm import segment_mm
 
@@ -944,12 +1265,14 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     # ---- phase 2: kernels against their plain versions -------------------
+    flash_rows = phase_flash()
     kernel_rows = phase_kernels()
 
     # ---- phase 3: the main paths, one session each -----------------------
     counters = {"delta_apply": delta_apply, "mlp_apply": mlp_apply,
                 "extremum_apply": extremum_apply,
-                "embedding_bag": embedding_bag, "segment_mm": segment_mm}
+                "embedding_bag": embedding_bag, "segment_mm": segment_mm,
+                "flash_attention": flash_attention}
     sessions = [run_session(wl, counters, kernel) for wl, kernel in (
         ("gc-s", "delta_apply"), ("gi-s", "mlp_apply"),
         ("gs-max", "extremum_apply"), ("gc-min", "extremum_apply"),
@@ -958,8 +1281,13 @@ def main() -> int:
     full_sessions = [run_full_session(wl, counters)
                      for wl in ("gc-s", "gc-w")]
     ripple = run_ripple_session(counters)
+
+    # ---- phase 4: LM serving, flash_attention in every prefill layer -----
+    lm = run_lm(counters)
+
     launches = {name: sum(s["launches"][name] for s in sessions)
                 for name in counters}
+    launches["flash_attention"] = lm["launches"]["flash_attention"]
     # segment_mm: the full engines' batches and every bootstrap counted
     launches["segment_mm"] = sum(
         s["launches"]["segment_mm"] + s["bootstrap_segment_mm_launches"]
@@ -1029,6 +1357,22 @@ def main() -> int:
         bound_by=row["bound_by"], library_ms=row["library_ms"],
         shape=f"n={row['n']} E={row['E']} d=128 "
               f"max_in_degree={row['max_in_degree']}",
+        passed=True))
+    # flash_attention at the prefill's shape, timed in phase 2
+    row = next(r for r in flash_rows if "ms" in r
+               and r["dtype"] == str(torch.bfloat16)
+               and (r["B"], r["S"], r["H"], r["Hkv"], r["Dh"])
+               == tuple(PREFILL.values()))
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:86",
+        launches=launches["flash_attention"],
+        max_abs_err=row["max_abs_err"], ms=row["ms"],
+        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"],
+        shape="B={B} S={S} H={H} Hkv={Hkv} Dh={Dh} bf16 causal".format(
+            **PREFILL),
         passed=True))
     torch.cuda.synchronize()
 

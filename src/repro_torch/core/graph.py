@@ -244,16 +244,22 @@ class DynamicGraph:
         net_adds, net_dels, seen = [], [], {}
         for e in adds:
             k = (e.src, e.dst)
+            if k not in twice:
+                net_adds.append(e)
+                continue
             seen[k] = seen.get(k, 0) + 1
-            if k not in twice or (seen[k] == n_add[k] and self.has_edge(*k)):
+            if seen[k] == n_add[k] and self.has_edge(*k):
                 net_adds.append(e)
         seen = {}
         for e in dels:
             k = (e.src, e.dst)
+            if k not in twice:
+                net_dels.append(e)
+                continue
             seen[k] = seen.get(k, 0) + 1
             after = self.has_edge(*k)
             before = n_del[k] > n_add[k] or (n_del[k] == n_add[k] and after)
-            if k not in twice or (seen[k] == 1 and before):
+            if seen[k] == 1 and before:
                 net_dels.append(e)
         return net_adds, net_dels
 

@@ -15,4 +15,6 @@ with ``nvcc`` at first use.
                  (PNA's first moment in the bounded device hop)
     segment_mm   weighted CSR SpMM: out[v] = sum_(u,v) w_uv x[u] (the full
                  pass's invertible aggregation)
+    flash_attention  causal grouped-query attention with an online softmax
+                 (the LM prefill's attention)
 """

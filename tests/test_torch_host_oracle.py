@@ -429,13 +429,12 @@ def test_edge_added_and_deleted_in_one_batch(name, engine):
     _assert_exact(s, f"{name}/{engine}")
 
 
-def test_reference_hypothesis_case_seed_3843():
-    """The falsifying example of the reference's
-    test_property_monotonic_exactness (seed 3843, gs-max), on the port's
-    ripple engine."""
-    wl = make_workload("gs-max", n_layers=2, d_in=6, d_hidden=8, n_classes=4)
-    g = DynamicGraph(16, *erdos_renyi(16, 48, seed=3843 % 7))
-    rng = np.random.default_rng(3843)
+def _reference_monotonic_case(seed: int, name: str) -> None:
+    """The body of the reference's test_property_monotonic_exactness
+    (tests/test_aggregators.py) on the port's ripple engine."""
+    wl = make_workload(name, n_layers=2, d_in=6, d_hidden=8, n_classes=4)
+    g = DynamicGraph(16, *erdos_renyi(16, 48, seed=seed % 7))
+    rng = np.random.default_rng(seed)
     x = rng.normal(size=(16, 6)).astype(np.float32)
     params = wl.init_params(torch.Generator().manual_seed(0), device="cpu")
     state = InferenceState.bootstrap(wl, params, x, g, device="cpu")
@@ -453,4 +452,58 @@ def test_reference_hypothesis_case_seed_3843():
                 batch.features.append(FeatureUpdate(
                     int(u), rng.normal(size=6).astype(np.float32)))
         eng.apply_batch(batch)
-        _assert_state_matches(state, _oracle(wl, params, g, state.H[0]))
+        _assert_state_matches(state, _oracle(wl, params, g, state.H[0]),
+                              f"{name} seed {seed}")
+
+
+def _reference_incremental_case(n: int, batches: list, name: str) -> None:
+    """The body of the reference's test_property_incremental_exactness
+    (tests/test_engine_equivalence.py) on the port's ripple engine: each
+    op is (kind, u, v, weight), kind 0 adds u -> v, 1 deletes it, anything
+    else (or u == v) sets u's features to ``weight``."""
+    wl = make_workload(name, n_layers=2, d_in=6, d_hidden=8, n_classes=4)
+    g = DynamicGraph(n, *erdos_renyi(n, 3 * n, seed=1,
+                                     weighted=wl.spec.weighted))
+    x = np.random.default_rng(0).normal(size=(n, 6)).astype(np.float32)
+    params = wl.init_params(torch.Generator().manual_seed(0), device="cpu")
+    state = InferenceState.bootstrap(wl, params, x, g, device="cpu")
+    eng = RippleEngine(wl, params_to_numpy(params), g, state)
+    for ops in batches:
+        batch = UpdateBatch()
+        for kind, u, v, weight in ops:
+            if kind == 0 and u != v:
+                batch.edges.append(EdgeUpdate(u, v, True, weight))
+            elif kind == 1 and u != v:
+                batch.edges.append(EdgeUpdate(u, v, False))
+            else:
+                batch.features.append(FeatureUpdate(
+                    u, np.full(6, weight, dtype=np.float32)))
+        eng.apply_batch(batch)
+        _assert_state_matches(state, _oracle(wl, params, g, state.H[0]),
+                              name)
+
+
+# add u -> v and delete it again in one batch: 1 -> 0 on an 8-vertex
+# graph, 0 -> 5 on a 13-vertex one
+TRANSIENT = {"1-0": (8, [[(0, 1, 0, 1.0), (1, 1, 0, 1.0)]]),
+             "0-5": (13, [[(0, 0, 5, 1.0), (1, 0, 5, 1.0)]])}
+HYPOTHESIS_CASES = (
+    [pytest.param(_reference_monotonic_case, (seed, "gs-max"),
+                  id=f"monotonic-seed{seed}-gs-max")
+     for seed in (3843, 2689, 6087)]
+    + [pytest.param(_reference_incremental_case, (*data, name),
+                    id=f"incremental-transient-{edge}-{name}")
+       for edge, data in TRANSIENT.items() for name in WORKLOAD_NAMES])
+
+
+@pytest.mark.parametrize("case,args", HYPOTHESIS_CASES)
+def test_reference_hypothesis_case_seed_3843(case, args):
+    """The falsifying examples the reference's own hypothesis searches
+    found, each a batch that adds an edge and deletes it again (the
+    reference's ripple engine keeps the transient edge's candidate):
+    test_property_monotonic_exactness at seeds 3843, 2689 and 6087 on
+    gs-max, and test_property_incremental_exactness at ``data=(8, [[(0, 1,
+    0, 1.0), (1, 1, 0, 1.0)]])`` and ``data=(13, [[(0, 0, 5, 1.0), (1, 0,
+    5, 1.0)]])``, found on gs-max and run on every workload.  The port's
+    ripple engine holds its oracle on each."""
+    case(*args)

@@ -2,7 +2,9 @@
 at the shapes of tests/test_kernels.py plus a main-path shape, with its
 bars (1e-5 on S', 1e-4 on h; extremum_apply's S' bit-equal; embedding_bag
 1e-5 in fp32, 2e-2 in bf16; segment_mm 2e-5 in fp32, 2e-2 in bf16, and
-1e-5 of the sum of the terms' magnitudes on a hub row).  Imports no JAX, so it runs where only
+1e-5 of the sum of the terms' magnitudes on a hub row; flash_attention
+atol 1e-5 / rtol 1e-4 in fp32, 2e-2 in bf16, also at phi4-mini's prefill
+shape and at ragged sequence lengths).  Imports no JAX, so it runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -17,6 +19,8 @@ from repro_torch.kernels.delta_apply.ref import delta_apply_ref
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.extremum_apply import extremum_apply
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.extremum_apply.ref import extremum_apply_ref
 from repro_torch.kernels.mlp_apply import mlp_apply
 from repro_torch.kernels.mlp_apply.ref import mlp_apply_ref
@@ -267,3 +271,51 @@ def test_segment_mm_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         segment_mm_csr(coo_to_csr(src, dst, w, 50, "cpu"), x)
     assert segment_mm.launches == before
+
+
+FLASH_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4),
+             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,Dh", [(2, 64, 4, 2, 16), (1, 128, 8, 8, 32),
+                                          (2, 96, 6, 2, 8), (1, 256, 4, 1, 64),
+                                          (2, 97, 6, 2, 16), (1, 200, 12, 2, 128),
+                                          (4, 2048, 24, 8, 128),
+                                          (4, 2079, 24, 8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_on_card(cuda, B, S, H, Hkv, Dh, dtype):
+    g = torch.Generator(device=cuda).manual_seed(S + Dh)
+    q = torch.randn((B, S, H, Dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device=cuda).to(dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    ref = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(1, 32, 4, 16, device=cuda)
+    k = torch.zeros(1, 32, 2, 16, device=cuda)
+    before = flash_attention.launches
+    with pytest.raises(ValueError):            # not contiguous
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(TypeError):             # dtypes differ
+        flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(TypeError):             # fp16 is not taken
+        flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError):            # head dim 24
+        flash_attention(torch.zeros(1, 32, 4, 24, device=cuda),
+                        torch.zeros(1, 32, 2, 24, device=cuda),
+                        torch.zeros(1, 32, 2, 24, device=cuda))
+    with pytest.raises(ValueError):            # 4 heads over 3 kv heads
+        flash_attention(q, torch.zeros(1, 32, 3, 16, device=cuda),
+                        torch.zeros(1, 32, 3, 16, device=cuda))
+    with pytest.raises(ValueError):            # k on the CPU
+        flash_attention(q, k.cpu(), k)
+    assert flash_attention.launches == before
