@@ -9,8 +9,10 @@ Phase 2 holds each kernel against its plain PyTorch version at the main
 path's shapes and at the ragged shapes of tests/test_kernels.py, and times
 both (embedding_bag also against F.embedding_bag, segment_mm against
 torch.sparse.mm over the same CSR, flash_attention against
-F.scaled_dot_product_attention: library yardsticks); flash_attention is
-also timed at phi4-mini's prefill shape in bf16 and fp32.
+F.scaled_dot_product_attention: library yardsticks, the backend SDPA took
+printed); flash_attention is also timed at phi4-mini's prefill shape in
+bf16 (its wgmma route) and fp32 (its mma route), and every row names the
+route it took.
 Phase 3 drives the port's main paths, one ``device``-engine session each
 -- gc-s (delta_apply), gi-s (mlp_apply), the monotonic gs-max and gc-min
 (extremum_apply), and the bounded-recompute gp-m (embedding_bag) and ga-s
@@ -45,8 +47,9 @@ answers 4 prompts of 2048 tokens with 32 greedy tokens each, through
 ``make_prefill_step``/``make_decode_step``, twice (a warm-up, then timed).
 Every prefill layer's attention is the flash_attention kernel: its launch
 count, set to 0 before the two requests and read after, must be 32 per
-prefill.  One prefill and 4 decode steps run under torch.profiler (device
-busy share, attention share of the prefill).  Then, in fp32 (17.8 GB of
+prefill, all on the wgmma route (flash_attention_sm90.cu).  One prefill
+and 4 decode steps run under torch.profiler (device busy share, attention
+share of the prefill).  Then, in fp32 (17.8 GB of
 parameters), the prefill logits with the kernel must be within relative
 L2 1e-5 of the same model with the plain attention, and the logits of
 decode step 4 within 1e-5 of a re-prefill of the prompt and the tokens
@@ -444,15 +447,40 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
+def sdpa_kernels(fn) -> list[str]:
+    """The device kernels one call of ``fn`` (an SDPA call) ran, from
+    torch.profiler: which backend SDPA took (cuDNN, flash or efficient)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
+
+
+def sdpa_backend(kernels: list[str]) -> str:
+    names = " ".join(kernels).lower()
+    for backend, marks in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                           ("efficient", ("fmha", "efficient", "cutlass"))):
+        if any(m in names for m in marks):
+            return backend
+    return "math"
+
+
 def check_flash(seed: int, B: int, S: int, H: int, Hkv: int, Dh: int,
                 dtype, *, timed: bool) -> dict:
     """flash_attention against its plain version on N(0, 1) inputs at
-    tests/test_kernels.py's bars.  Timed: with the library yardstick,
-    F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) on
-    the same inputs in its [B, H, S, Dh] layout, held to the plain version
-    at relative L2 2e-2 (it computes the same function)."""
+    tests/test_kernels.py's bars, the route it took (the route function's,
+    which the per-route launch counts must confirm) and, for the wgmma
+    route, bit-equal to a second launch.  Timed: with the library
+    yardstick, F.scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True) on the same inputs in its [B, H, S, Dh] layout, held
+    to the plain version at relative L2 2e-2 (it computes the same
+    function), and the backend it took."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import kernel_route
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     q = torch.randn((B, S, H, Dh), generator=g, device=DEVICE).to(dtype)
@@ -465,13 +493,24 @@ def check_flash(seed: int, B: int, S: int, H: int, Hkv: int, Dh: int,
     def plain():
         return flash_attention_ref(q, k, v)
 
-    out, ref = kernel(), plain()
+    route = kernel_route(dtype, Dh, H, Hkv)
+    before = dict(flash_attention.launches_by_route)
+    out, again, ref = kernel(), kernel(), plain()
     torch.cuda.synchronize()
+    took = {r: n - before[r] for r, n in
+            flash_attention.launches_by_route.items() if n != before[r]}
+    if took != {route: 2}:
+        raise AssertionError(f"flash_attention {B, S, H, Hkv, Dh} {dtype}: "
+                             f"launches {took}, expected 2 on {route}")
     torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
-    row = dict(kernel="flash_attention", B=B, S=S, H=H, Hkv=Hkv, Dh=Dh,
-               dtype=str(dtype),
+    same = torch.equal(out, again)
+    if route == "wgmma" and not same:
+        raise AssertionError(f"flash_attention {B, S, H, Hkv, Dh}: two "
+                             f"launches differ")
+    row = dict(kernel="flash_attention", route=route, B=B, S=S, H=H,
+               Hkv=Hkv, Dh=Dh, dtype=str(dtype),
                max_abs_err=(out.float() - ref.float()).abs().max().item(),
-               rel_l2=rel_l2(out, ref))
+               rel_l2=rel_l2(out, ref), bit_equal_rerun=same)
     if timed:
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
@@ -483,20 +522,28 @@ def check_flash(seed: int, B: int, S: int, H: int, Hkv: int, Dh: int,
         if lib_err > 2e-2:
             raise AssertionError(f"the SDPA yardstick differs from the plain "
                                  f"version by relative L2 {lib_err}")
+        lib_kernels = sdpa_kernels(library)
         nbytes, flops = flash_work(B, S, H, Hkv, Dh, q.element_size())
         b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS
                               if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
-        row.update(ms=device_ms(kernel), plain_ms=device_ms(plain, iters=10),
-                   library_ms=device_ms(library), library_rel_l2=lib_err,
+        # kernel and library in turns: kernel, library, library, kernel
+        ms, lib_ms = device_ms(kernel), device_ms(library)
+        lib_ms2, ms2 = device_ms(library), device_ms(kernel)
+        row.update(ms=statistics.median([ms, ms2]), ms_turns=[ms, ms2],
+                   plain_ms=device_ms(plain, iters=10),
+                   library_ms=statistics.median([lib_ms, lib_ms2]),
+                   library_ms_turns=[lib_ms, lib_ms2], library_rel_l2=lib_err,
+                   library_backend=sdpa_backend(lib_kernels),
+                   library_kernels=[k[:120] for k in lib_kernels],
                    bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
     return row
 
 
 def phase_flash() -> list[dict]:
     """flash_attention against its plain version: tests/test_kernels.py's
-    shapes and a ragged one in both dtypes, then timed at the prefill
-    shape (bf16 and fp32), at a ragged S and at one query head per kv
-    head."""
+    shapes and a ragged one in both dtypes, the wgmma route at S of 1, 63
+    and 129, then timed at the prefill shape (bf16 and fp32), at a ragged
+    S, at one query head per kv head and at head dim 64."""
     rows = []
     for B, S, H, Hkv, Dh in ((2, 64, 4, 2, 16), (1, 128, 8, 8, 32),
                              (2, 96, 6, 2, 8), (1, 256, 4, 1, 64),
@@ -504,6 +551,10 @@ def phase_flash() -> list[dict]:
         for dtype in (torch.float32, torch.bfloat16):
             rows.append(check_flash(len(rows), B, S, H, Hkv, Dh, dtype,
                                     timed=False))
+    for S in (1, 63, 129):
+        for H, Hkv, Dh in ((24, 8, 128), (6, 2, 64)):
+            rows.append(check_flash(len(rows), 2, S, H, Hkv, Dh,
+                                    torch.bfloat16, timed=False))
     P = PREFILL
     for dtype in (torch.bfloat16, torch.float32):
         rows.append(check_flash(len(rows), *P.values(), dtype, timed=True))
@@ -511,8 +562,13 @@ def phase_flash() -> list[dict]:
                             P["Dh"], torch.bfloat16, timed=True))
     rows.append(check_flash(len(rows), P["B"], P["S"], P["Hkv"], P["Hkv"],
                             P["Dh"], torch.bfloat16, timed=True))
+    rows.append(check_flash(len(rows), P["B"], P["S"], P["H"], P["Hkv"], 64,
+                            torch.bfloat16, timed=True))
     for row in rows:
         log("kernel_check", json.dumps(row))
+    main = next(r for r in rows if "ms" in r and r["route"] == "wgmma")
+    log(f"sdpa backend: {main['library_backend']} "
+        f"({', '.join(main['library_kernels'])})")
     return rows
 
 
@@ -1071,6 +1127,8 @@ def profile_lm(prefill, decode, params, prompts, n_steps: int) -> dict:
         dev = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in dev) * 1e-6
+        # the flash_attention kernels: flash_kernel_sm90 (wgmma route) and
+        # flash_kernel (mma route)
         attn = sum(e.self_device_time_total for e in dev
                    if "flash_kernel" in e.key) * 1e-6
         top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
@@ -1155,13 +1213,16 @@ def run_lm(counters: dict) -> dict:
     decode = make_decode_step(cfg)
 
     # ---- the main path: a warm-up request, then the timed one ------------
+    flash = counters["flash_attention"]
     for fn in counters.values():
         fn.launches = 0
+    flash.launches_by_route = dict.fromkeys(flash.launches_by_route, 0)
     generate(prefill, decode, params, prompts, T)
-    first = counters["flash_attention"].launches
+    first = flash.launches
     tokens, step_logits, prefill_ms, step_ms = generate(
         prefill, decode, params, prompts, T)
     launches = {name: fn.launches for name, fn in counters.items()}
+    routes = dict(flash.launches_by_route)
     if (first, launches["flash_attention"]) != (cfg.n_layers,
                                                 2 * cfg.n_layers) \
             or sum(launches.values()) != launches["flash_attention"]:
@@ -1170,6 +1231,10 @@ def run_lm(counters: dict) -> dict:
                              f"second; each prefill of {cfg.n_layers} "
                              f"layers must launch it {cfg.n_layers} times "
                              f"and no other kernel")
+    if routes["wgmma"] != launches["flash_attention"]:
+        raise AssertionError(f"lm: flash_attention launches by route "
+                             f"{routes}; every prefill launch must take the "
+                             f"wgmma route")
     peak_bf16 = torch.cuda.max_memory_allocated()
     if tokens.shape != (B, T) or not bool(((tokens >= 0)
                                            & (tokens < cfg.vocab)).all()):
@@ -1208,7 +1273,8 @@ def run_lm(counters: dict) -> dict:
         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim,
         d_ff=cfg.d_ff, vocab=cfg.vocab, dtype=cfg.param_dtype, batch=B,
         prompt=S, tokens=T, params=n_params, param_bytes=param_bytes,
-        init_s=init_s, launches=launches, prefill_ms=prefill_ms,
+        init_s=init_s, launches=launches, flash_routes=routes,
+        prefill_ms=prefill_ms,
         prefill_tok_per_s=B * S / (prefill_ms * 1e-3),
         decode_ms_per_token=decode_ms, decode_ms=step_ms,
         generated_tok_per_s=B * (T - 1) / (sum(step_ms) * 1e-3),
@@ -1358,19 +1424,22 @@ def main() -> int:
         shape=f"n={row['n']} E={row['E']} d=128 "
               f"max_in_degree={row['max_in_degree']}",
         passed=True))
-    # flash_attention at the prefill's shape, timed in phase 2
+    # flash_attention at the prefill's shape, timed in phase 2: the wgmma
+    # route, which took every prefill launch
     row = next(r for r in flash_rows if "ms" in r
                and r["dtype"] == str(torch.bfloat16)
                and (r["B"], r["S"], r["H"], r["Hkv"], r["Dh"])
                == tuple(PREFILL.values()))
     kernels.append(dict(
         name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:86",
         launches=launches["flash_attention"],
         max_abs_err=row["max_abs_err"], ms=row["ms"],
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
+        library_backend=row["library_backend"],
+        kernel_route=row["route"], launches_by_route=lm["flash_routes"],
         shape="B={B} S={S} H={H} Hkv={Hkv} Dh={Dh} bf16 causal".format(
             **PREFILL),
         passed=True))

@@ -9,7 +9,9 @@
 // denominator is floored at 1e-30, as the TPU kernel does.  In bf16 the
 // probabilities are cast to bf16 before P.V (the TPU kernel casts p to v's
 // type); fp32 runs plain FMA throughout (no TF32).  Any S is taken (the
-// ragged last tiles are masked); Dh is one of 8, 16, 32, 64, 128.
+// ragged last tiles are masked); Dh is one of 8, 16, 32, 64, 128 in fp32
+// and one of 8, 16, 32 in bf16 (flash_attention_sm90.cu takes bf16 at 64
+// and 128).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_pallas, pl.pallas_call at line 86), whose grid walks
@@ -38,7 +40,6 @@
 //     tiles past its own last row, and only tiles that cross the diagonal
 //     or the ragged end are masked; the q tiles with the most work launch
 //     first.
-// wgmma and TMA, the way to the card's full rate, are left for later.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -481,11 +482,18 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
     case 8: return launch<T, 8>(q, k, v, out, B, S, H, Hkv, hpb, slabs, st);
     case 16: return launch<T, 16>(q, k, v, out, B, S, H, Hkv, hpb, slabs, st);
     case 32: return launch<T, 32>(q, k, v, out, B, S, H, Hkv, hpb, slabs, st);
-    case 64: return launch<T, 64>(q, k, v, out, B, S, H, Hkv, hpb, slabs, st);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, S, H, Hkv, hpb, slabs, st);
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (sizeof(T) == 4) {   // fp32 only: bf16 takes the wgmma kernel
+    switch (Dh) {
+      case 64:
+        return launch<T, 64>(q, k, v, out, B, S, H, Hkv, hpb, slabs, st);
+      case 128:
+        return launch<T, 128>(q, k, v, out, B, S, H, Hkv, hpb, slabs, st);
+      default: break;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -1,6 +1,15 @@
-"""Wrapper of causal grouped-query attention: the CUDA kernel
-(``csrc/flash_attention.cu``) for CUDA tensors, the plain version
-(``ref.py``) for CPU tensors."""
+"""Wrapper of causal grouped-query attention: one of two CUDA kernels for
+CUDA tensors, chosen by :func:`kernel_route` before the launch, the plain
+version (``ref.py``) for CPU tensors.
+
+- ``"wgmma"``: ``csrc/flash_attention_sm90.cu``, wgmma + TMA with a
+  warp-specialised pipeline, for bf16 at head dims 64 and 128;
+- ``"mma"``: ``csrc/flash_attention.cu``, ``mma.sync`` (bf16) or FMA
+  (fp32), for fp32 at every head dim of :data:`HEAD_DIMS` and bf16 at
+  8, 16 and 32.
+
+A failed build or launch raises; nothing runs the other kernel or the
+plain version in its place."""
 from __future__ import annotations
 
 import ctypes
@@ -13,13 +22,40 @@ from .._common import cuda_device, on_cpu
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
+ROUTES = ("wgmma", "mma")
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int, n_heads: int,
+                 n_kv_heads: int) -> str:
+    """The kernel that takes attention of this dtype and shape: ``"wgmma"``
+    for bf16 at :data:`WGMMA_HEAD_DIMS`, ``"mma"`` for the rest of fp32 or
+    bf16 at :data:`HEAD_DIMS`.  Raises ``TypeError`` for another dtype and
+    ``ValueError`` for another head dim or query heads that do not group
+    evenly over the kv heads."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q is {dtype}, expected torch.float32 or "
+                        f"torch.bfloat16")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} is not one of {HEAD_DIMS}")
+    if n_kv_heads < 1 or n_heads < 1 or n_heads % n_kv_heads:
+        raise ValueError(f"{n_heads} query heads do not group over "
+                         f"{n_kv_heads} kv heads")
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "mma"
 
 
 @functools.cache
-def _launcher():
-    fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
+def _launcher(route: str):
+    if route == "wgmma":
+        fn = _build.load("flash_attention_sm90").flash_attention_sm90_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+    else:
+        fn = _build.load("flash_attention").flash_attention_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -31,22 +67,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     ``[B,S,H,Dh]`` in q's dtype.  fp32 or bf16, all three of one dtype,
     contiguous; ``Dh`` one of :data:`HEAD_DIMS`; any ``S``.
     ``flash_attention.launches`` counts the kernel launches of this
-    process."""
+    process and ``flash_attention.launches_by_route`` each route's."""
     if on_cpu(q, k, v):
         return flash_attention_ref(q, k, v)
     dev = cuda_device(q)
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q is {q.dtype}, expected torch.float32 or "
-                        f"torch.bfloat16")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be 4-D; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
     B, S, H, Dh = q.shape
     Hkv = k.shape[2]
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {Dh} is not one of {HEAD_DIMS}")
-    if Hkv < 1 or H % Hkv:
-        raise ValueError(f"{H} query heads do not group over {Hkv} kv heads")
+    route = kernel_route(q.dtype, Dh, H, Hkv)
     for name, t, shape in (("q", q, (B, S, H, Dh)), ("k", k, (B, S, Hkv, Dh)),
                            ("v", v, (B, S, Hkv, Dh))):
         if t.device != dev:
@@ -64,16 +94,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            H, Hkv, Dh]
+    if route == "mma":
+        args.append(int(q.dtype == torch.bfloat16))
     with torch.cuda.device(dev):
-        err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), B, S, H, Hkv, Dh,
-                          int(q.dtype == torch.bfloat16),
-                          torch.cuda.current_stream(dev).cuda_stream)
+        err = _launcher(route)(*args,
+                               torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed ({route} "
+                           f"route): CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -4,7 +4,9 @@ JAX Pallas kernel (interpret mode) on the shapes and bars of
 tests/test_kernels.py (bf16 atol/rtol 2e-2; fp32 atol 1e-5, rtol 1e-4)
 and at prompt lengths that are no multiple of the CUDA kernel's tiles;
 the port's ``models.lm.model.causal_attention`` against the reference's
-chunked one; and the CPU route of the wrapper.  The CUDA kernel itself is held to this plain version on a card
+chunked one; the CPU route of the wrapper; and the route function that
+picks, before any launch, which of the two CUDA kernels a CUDA call takes.
+The CUDA kernels themselves are held to this plain version on a card
 (tests/test_torch_kernels_cuda.py)."""
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.models.lm.config import LMConfig as JaxLMConfig
 from repro.models.lm.model import causal_attention as jax_causal_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ops import kernel_route
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.model import causal_attention
@@ -102,3 +105,42 @@ def test_ref_is_causal():
     moved = flash_attention_ref(q, k2, v2)
     assert torch.equal(moved[:, :20], base[:, :20])
     assert not torch.equal(moved[:, 20:], base[:, 20:])
+
+
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_cpu_wrapper_routes_to_ref_at_wgmma_head_dims(Dh):
+    """bf16 at the head dims whose CUDA route is the wgmma kernel: on the
+    CPU the wrapper still takes the plain version and launches nothing."""
+    q, k, v = (torch.as_tensor(a).to(torch.bfloat16)
+               for a in _qkv(4, 1, 70, 6, 2, Dh))
+    launches = flash_attention.launches
+    by_route = dict(flash_attention.launches_by_route)
+    out = flash_attention(q, k, v)
+    assert flash_attention.launches == launches
+    assert flash_attention.launches_by_route == by_route
+    assert torch.equal(out, flash_attention_ref(q, k, v))
+
+
+# (H, Hkv): rep = H / Hkv of 1, 2, 3, 4 and 8, then query heads that do not
+# group over the kv heads
+GROUPS = [(8, 8), (8, 4), (24, 8), (8, 2), (16, 2), (6, 4), (4, 0)]
+
+
+@pytest.mark.parametrize("H,Hkv", GROUPS)
+@pytest.mark.parametrize("Dh", [8, 16, 24, 32, 48, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_kernel_route(dtype, Dh, H, Hkv):
+    """bf16 at head dims 64 and 128 takes the wgmma kernel; fp32 at every
+    head dim of 8, 16, 32, 64, 128 and bf16 at 8, 16, 32 the mma kernel;
+    any other dtype, head dim or grouping is refused before a launch."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        with pytest.raises(TypeError):
+            kernel_route(dtype, Dh, H, Hkv)
+    elif Dh not in (8, 16, 32, 64, 128) or Hkv == 0 or H % Hkv:
+        with pytest.raises(ValueError):
+            kernel_route(dtype, Dh, H, Hkv)
+    else:
+        wgmma = dtype == torch.bfloat16 and Dh in (64, 128)
+        assert kernel_route(dtype, Dh, H, Hkv) == ("wgmma" if wgmma
+                                                   else "mma")

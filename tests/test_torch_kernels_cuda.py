@@ -4,7 +4,8 @@ bars (1e-5 on S', 1e-4 on h; extremum_apply's S' bit-equal; embedding_bag
 1e-5 in fp32, 2e-2 in bf16; segment_mm 2e-5 in fp32, 2e-2 in bf16, and
 1e-5 of the sum of the terms' magnitudes on a hub row; flash_attention
 atol 1e-5 / rtol 1e-4 in fp32, 2e-2 in bf16, also at phi4-mini's prefill
-shape and at ragged sequence lengths).  Imports no JAX, so it runs where only
+shape and at ragged sequence lengths, on both of its routes: the wgmma
+kernel bit-equal across launches).  Imports no JAX, so it runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -319,3 +320,51 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):            # k on the CPU
         flash_attention(q, k.cpu(), k)
     assert flash_attention.launches == before
+
+
+def _flash_inputs(cuda, seed, B, S, H, Hkv, Dh, dtype):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=cuda).to(dtype)
+            for shape in ((B, S, H, Dh), (B, S, Hkv, Dh), (B, S, Hkv, Dh))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 65, 129, 2048, 2079])
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_flash_attention_wgmma_route_on_card(cuda, S, rep, Dh):
+    """bf16 at head dims 64 and 128 takes the wgmma kernel
+    (flash_attention_sm90.cu): within FLASH_TOL of the plain version and
+    the same bits in two launches.  More work items (128 query rows of one
+    (b, head)) than the card has SMs, so persistent CTAs take several."""
+    B, H = (1, 24) if S > 1024 else (2, 72)
+    q, k, v = _flash_inputs(cuda, S + rep + Dh, B, S, H, H // rep, Dh,
+                            torch.bfloat16)
+    before = dict(flash_attention.launches_by_route)
+    out, again = flash_attention(q, k, v), flash_attention(q, k, v)
+    ref = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route == {
+        "wgmma": before["wgmma"] + 2, "mma": before["mma"]}
+    assert B * H * -(-S // 128) > torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,Dh", [(torch.bfloat16, 32),
+                                      (torch.bfloat16, 8),
+                                      (torch.float32, 128)])
+def test_flash_attention_mma_route_on_card(cuda, dtype, Dh):
+    """fp32, and bf16 below head dim 64, take the mma.sync / FMA kernel
+    (flash_attention.cu), unchanged."""
+    q, k, v = _flash_inputs(cuda, Dh, 2, 200, 6, 2, Dh, dtype)
+    before = dict(flash_attention.launches_by_route)
+    out = flash_attention(q, k, v)
+    ref = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route == {
+        "wgmma": before["wgmma"], "mma": before["mma"] + 1}
+    torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
