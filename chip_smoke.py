@@ -8,11 +8,12 @@ with nvcc (into build/kernels/), one nvcc per source, all at once.
 Phase 2 holds each kernel against its plain PyTorch version at the main
 path's shapes and at the ragged shapes of tests/test_kernels.py, and times
 both (embedding_bag also against F.embedding_bag, segment_mm against
-torch.sparse.mm over the same CSR, flash_attention against
-F.scaled_dot_product_attention: library yardsticks, the backend SDPA took
-printed); flash_attention is also timed at phi4-mini's prefill shape in
-bf16 (its wgmma route) and fp32 (its mma route), and every row names the
-route it took.
+torch.sparse.mm over the same CSR at d = 128 and 40, flash_attention
+against F.scaled_dot_product_attention: library yardsticks, the backend
+SDPA took printed); flash_attention is also timed at phi4-mini's prefill
+shape in bf16 (its wgmma route) and fp32 (its mma route), extremum_apply
+in turns with its K-chunked route (the design its resident route
+replaced, ``prev_ms``), and every row names the route it took.
 Phase 3 drives the port's main paths, one ``device``-engine session each
 -- gc-s (delta_apply), gi-s (mlp_apply), the monotonic gs-max and gc-min
 (extremum_apply), and the bounded-recompute gp-m (embedding_bag) and ga-s
@@ -39,7 +40,11 @@ batches of the stream, launching segment_mm once per layer per batch, and
 hold their final H against a ``device``-engine session over the same
 batches; and a ``ripple``-engine gc-s session (host NumPy, bootstrapped on
 the card) runs 10 batches against the oracle, its rates labelled as the
-host's.
+host's.  Then the hop kernels (delta_apply, mlp_apply, extremum_apply)
+are timed at every shape the sessions launched them at, from their
+launch counts by shape: a ``kernel_rung`` line each, with its launches,
+and a ``rungs`` line of launches x (ms - bound) summed per kernel.  Every
+extremum_apply launch of the sessions must take its resident route.
 Phase 4 serves a language model: phi4-mini-3.8b at its published width
 and depth (32 layers, d_model 3072, 24 query and 8 kv heads of 128, d_ff
 8192, vocab 200064; 4.45 B parameters in bf16, random from a seed)
@@ -118,6 +123,17 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
+def reset_counts(counters: dict) -> None:
+    """Every kernel's launch count to 0, with its counts by route and by
+    shape where it keeps them."""
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+        if hasattr(fn, "launches_by_shape"):
+            fn.launches_by_shape = {}
+
+
 def device_ms(fn, iters: int = 25, warmup: int = 3) -> float:
     """Median device time of one call of ``fn``, in ms.  The calls queue
     up behind a device-side sleep, so the gaps between their events are
@@ -134,6 +150,21 @@ def device_ms(fn, iters: int = 25, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     return statistics.median(events[i].elapsed_time(events[i + 1])
                              for i in range(iters))
+
+
+def host_ms(fn, iters: int = 25, warmup: int = 3) -> float:
+    """Median host-clock time of one call of ``fn`` between two
+    synchronisations, in ms: for work that reads back from the card."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -210,8 +241,11 @@ def check_extremum(gen, R, Din, Dout, maximize, masked, *,
                    timed: bool) -> dict:
     """Identity (+/-inf) rows in S and M, as tests/test_kernels.py puts
     them; with ``masked`` a ~7% shrink mask (bool, as the engine passes
-    it) and its re-aggregated cells."""
-    from repro_torch.kernels.extremum_apply import extremum_apply
+    it) and its re-aggregated cells.  The row names the route the wrapper
+    took; timed, it also times the K-chunked route at the same shape
+    (``prev_ms``: the design the resident route replaced, launched through
+    the kernel's C entry, uncounted, and held to the same bars)."""
+    from repro_torch.kernels.extremum_apply import extremum_apply, ops
     from repro_torch.kernels.extremum_apply.ref import extremum_apply_ref
     dev = torch.device(DEVICE)
     ident = -float("inf") if maximize else float("inf")
@@ -234,21 +268,48 @@ def check_extremum(gen, R, Din, Dout, maximize, masked, *,
     def plain():
         return extremum_apply_ref(*args, **kw, maximize=maximize, relu=True)
 
+    before = dict(extremum_apply.launches_by_route)
     Sk, hk = kernel()
     Sr, hr = plain()
     torch.cuda.synchronize()
+    route = next(r for r, n in extremum_apply.launches_by_route.items()
+                 if n != before[r])
     if not torch.equal(Sk, Sr):
         raise AssertionError(f"extremum_apply S' differs from the plain "
                              f"version at R={R} Din={Din} Dout={Dout} "
                              f"maximize={maximize} masked={masked}")
     torch.testing.assert_close(hk, hr, **H_TOL)
-    row = dict(kernel="extremum_apply", R=R, Din=Din, Dout=Dout,
+    row = dict(kernel="extremum_apply", route=route, R=R, Din=Din, Dout=Dout,
                maximize=maximize, masked=masked, err_S=0.0,
                max_abs_err=(hk - hr).abs().max().item())
     if timed:
+        Sc, hc = torch.empty_like(Sk), torch.empty_like(hk)
+        ptrs = [t.data_ptr() for t in args] + [Sc.data_ptr(), hc.data_ptr()]
+        mk = [kw["reagg"].data_ptr(), kw["mask"].data_ptr()] if masked \
+            else [None, None]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def kchunk():
+            err = ops._launcher()(ptrs[0], ptrs[1], *mk, *ptrs[2:], R, Din,
+                                  Dout, int(maximize), 1, 0, 0, 0, stream)
+            if err:
+                raise RuntimeError(f"extremum_apply K-chunked launch: CUDA "
+                                   f"error {err}")
+
+        kchunk()
+        torch.cuda.synchronize()
+        if not torch.equal(Sc, Sr):
+            raise AssertionError("extremum_apply's K-chunked route: S' "
+                                 "differs from the plain version")
+        torch.testing.assert_close(hc, hr, **H_TOL)
         nbytes, flops = extremum_work(R, Din, Dout, masked)
         b_ms, b_by = bound_ms(nbytes, flops)
-        row.update(ms=device_ms(kernel), plain_ms=device_ms(plain),
+        # new and replaced design in turns: new, replaced, replaced, new
+        ms, prev = device_ms(kernel), device_ms(kchunk)
+        prev2, ms2 = device_ms(kchunk), device_ms(kernel)
+        row.update(ms=statistics.median([ms, ms2]), ms_turns=[ms, ms2],
+                   prev_ms=statistics.median([prev, prev2]),
+                   prev_ms_turns=[prev, prev2], plain_ms=device_ms(plain),
                    bound_ms=b_ms, bound_by=b_by)
     return row
 
@@ -327,10 +388,19 @@ def check_segment_mm(seed: int, src, dst, w, n: int, d: int,
     sum's bar), with torch.sparse.mm over the same CSR as the library
     yardstick."""
     from repro_torch.kernels.segment_mm import coo_to_csr, segment_mm_csr
-    from repro_torch.kernels.segment_mm.ref import segment_mm_ref
+    from repro_torch.kernels.segment_mm.ops import EDGE_BUDGET, partition
+    from repro_torch.kernels.segment_mm.ref import (partition_ref,
+                                                    segment_mm_ref)
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     x = torch.randn((n, d), generator=g, device=DEVICE).to(dtype)
     csr = coo_to_csr(src, dst, w, n, DEVICE)
+    # the CSR's work items (the partition kernels) are the plain version's
+    want = partition_ref(csr.rowptr.cpu(), EDGE_BUDGET)
+    if csr.n_chunks != want[3] or not all(
+            torch.equal(got.cpu(), ref) for got, ref in
+            zip((csr.items, csr.long_rows, csr.chunk_ptr), want[:3])):
+        raise AssertionError(f"the partition kernels disagree with the "
+                             f"plain partition at n={n}")
 
     def kernel():
         return segment_mm_csr(csr, x)
@@ -352,7 +422,8 @@ def check_segment_mm(seed: int, src, dst, w, n: int, d: int,
     else:
         torch.testing.assert_close(out.float(), ref.float(), **SEG_TOL[dtype])
     row = dict(kernel="segment_mm", n=n, E=len(src), d=d, dtype=str(dtype),
-               long_rows=int(csr.long_rows.shape[0]), spans=csr.n_spans,
+               budget=EDGE_BUDGET, items=int(csr.items.shape[0]),
+               long_rows=int(csr.long_rows.shape[0]), chunks=csr.n_chunks,
                max_in_degree=int((csr.rowptr[1:] - csr.rowptr[:-1]).max()),
                max_abs_err=err.max().item(),
                max_err_over_magnitude=(err / mag.clamp(min=1e-30))
@@ -367,6 +438,9 @@ def check_segment_mm(seed: int, src, dst, w, n: int, d: int,
         nbytes, flops = segment_mm_work(n, len(src), d, x.element_size())
         b_ms, b_by = bound_ms(nbytes, flops)
         row.update(
+            partition_ms=host_ms(lambda: partition(csr.rowptr)),
+            partition_plain_ms=host_ms(
+                lambda: partition_ref(csr.rowptr, EDGE_BUDGET)),
             ms=device_ms(kernel), plain_ms=device_ms(plain),
             library_ms=device_ms(lambda: torch.sparse.mm(A, x)),
             bound_ms=b_ms, bound_by=b_by,
@@ -723,8 +797,9 @@ def build_session(workload: str, engine: str, counters: dict, **options):
     layer (a device engine's warm-up batch adds its hop kernels).  Returns
     (session, build seconds, segment_mm's bootstrap launches)."""
     from repro_torch.api import InferenceSession, SessionConfig
-    for fn in counters.values():
-        fn.launches = 0
+    from repro_torch.kernels.segment_mm.ops import partition
+    reset_counts(counters)
+    partitions = partition.launches
     t0 = time.perf_counter()
     session = InferenceSession.build(SessionConfig(
         workload=workload, engine=engine, graph="powerlaw",
@@ -737,6 +812,11 @@ def build_session(workload: str, engine: str, counters: dict, **options):
     if boot["segment_mm"] != want:
         raise AssertionError(f"{workload}/{engine}: the bootstrap launched "
                              f"{boot}, expected segment_mm {want} times")
+    # the full pass's CSR: its work items by the partition kernels, once
+    if partition.launches - partitions != (want > 0):
+        raise AssertionError(f"{workload}/{engine}: the bootstrap ran the "
+                             f"partition {partition.launches - partitions} "
+                             f"times")
     return session, build_s, boot["segment_mm"]
 
 
@@ -789,12 +869,21 @@ def run_session(workload: str, counters: dict, kernel: str | None) -> dict:
     eng = session.engine.impl
     H_start = [h.clone() for h in eng.state.H] \
         if eng.monotonic or eng.bounded else None
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     report = session.ingest(updates[:-N_PROFILED], batch_size=BATCH)
     torch.cuda.synchronize()
     profiled, report_p = profile_window(session, updates[-N_PROFILED:])
     launches = {name: fn.launches for name, fn in counters.items()}
+    # the hop kernels' launches by shape (R, Din[, Dh], Dout), for the
+    # by-rung timing after the sessions
+    by_shape = {name: dict(fn.launches_by_shape) for name, fn in
+                counters.items() if hasattr(fn, "launches_by_shape")
+                and fn.launches_by_shape}
+    routes = dict(counters["extremum_apply"].launches_by_route)
+    if routes["kchunk"]:
+        raise AssertionError(f"{workload}: extremum_apply launches by route "
+                             f"{routes}; the main path's shapes must take "
+                             f"the resident route")
     L = ARXIV["n_layers"]
     n_batches = report.n_batches + report_p.n_batches
     if report.n_batches < 20 or (kernel is not None
@@ -836,6 +925,9 @@ def run_session(workload: str, counters: dict, kernel: str | None) -> dict:
         updates=len(updates), timed_batches=report.n_batches, batch=BATCH,
         build_s=build_s, bootstrap_segment_mm_launches=boot,
         launches=launches, retries=eng.retries,
+        launches_by_shape={name: {"x".join(map(str, k)): v
+                                  for k, v in shapes.items()}
+                           for name, shapes in by_shape.items()},
         hop_caps=[list(c) for c in eng._caps(0)],
         mirror_uploads=eng.out_mirror.uploads,
         steady_ups=BATCH / (p50 * 1e-3), p50_ms=p50,
@@ -885,6 +977,7 @@ def run_session(workload: str, counters: dict, kernel: str | None) -> dict:
             result["tiny_change_rows"].append(
                 int(((moved > 0) & (moved < 1e-5 * scale)).sum()))
     log("session", json.dumps(result))
+    result["by_shape"] = by_shape
     if eng.bounded:
         # after the session line, so its numbers survive a failed check
         aux = check_bounded_aux(session)
@@ -976,20 +1069,28 @@ def run_full_session(workload: str, counters: dict) -> dict:
     same bits (no atomics); and the final H must hold against a
     ``device``-engine session over the same batches (:func:`hold_close`).
     Also times the bare full pass on the card ("s per full pass"), the
+    CSR it builds (upload, sort and work items: ``coo_to_csr``), the
     host's edge export (``graph.coo()``) and the whole state rewrite a
     batch does (export, upload, pass, download of every H and S)."""
     from repro_torch.api.engines import _materialize_state
     from repro_torch.core.full import full_inference
+    from repro_torch.kernels.segment_mm import coo_to_csr
+    from repro_torch.kernels.segment_mm.ops import partition
     from repro_torch.kernels.segment_mm.ref import segment_mm_ref
     L = ARXIV["n_layers"]
     session, build_s, boot = build_session(workload, "full", counters)
     updates = session.make_stream(N_UPDATES, seed=1).updates
     updates = updates[:N_FULL_BATCHES * BATCH]
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
+    partition.launches = 0
     report = session.ingest(updates, batch_size=BATCH)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
+    partitions = partition.launches
+    if partitions != report.n_batches:
+        raise AssertionError(f"{workload}/full: the partition ran "
+                             f"{partitions} times for {report.n_batches} "
+                             f"batches")
     if launches["segment_mm"] != L * report.n_batches \
             or sum(launches.values()) != launches["segment_mm"]:
         raise AssertionError(f"{workload}/full: {launches} launches for "
@@ -1024,6 +1125,13 @@ def run_full_session(workload: str, counters: dict) -> dict:
                                torch.as_tensor(state.H[l])):
                 raise AssertionError(f"{workload}/full: a fresh pass gave "
                                      f"other bits at layer {l}")
+    csr_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coo_to_csr(src, dst, w, ARXIV["n"], DEVICE)
+        torch.cuda.synchronize()
+        csr_s.append(time.perf_counter() - t0)
     t0 = time.perf_counter()
     session.graph.coo()
     coo_s = time.perf_counter() - t0
@@ -1047,9 +1155,10 @@ def run_full_session(workload: str, counters: dict) -> dict:
         workload=workload, engine="full", n=ARXIV["n"],
         edges=session.graph.num_edges, layers=L, batches=report.n_batches,
         batch=BATCH, build_s=build_s, bootstrap_segment_mm_launches=boot,
-        launches=launches, p50_ms=report.median_latency_ms,
+        launches=launches, partition_launches=partitions,
+        p50_ms=report.median_latency_ms,
         batch_ms=[t * 1e3 for t in report.latencies],
-        full_pass_s=pass_s, host_coo_s=coo_s, materialize_s=materialize_s,
+        full_pass_s=pass_s, csr_s=csr_s, host_coo_s=coo_s, materialize_s=materialize_s,
         S_err_vs_plain_per_layer=seg_err,
         vs_device_per_layer=vs_device, last_f64_bar_use=last_f64_bar_use)
     log("full_session", json.dumps(result))
@@ -1063,8 +1172,7 @@ def run_ripple_session(counters: dict) -> dict:
     host's."""
     session, build_s, boot = build_session("gc-s", "ripple", counters)
     updates = session.make_stream(N_UPDATES, seed=1).updates
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     report = session.ingest(updates[:N_RIPPLE_BATCHES * BATCH],
                             batch_size=BATCH)
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -1214,9 +1322,7 @@ def run_lm(counters: dict) -> dict:
 
     # ---- the main path: a warm-up request, then the timed one ------------
     flash = counters["flash_attention"]
-    for fn in counters.values():
-        fn.launches = 0
-    flash.launches_by_route = dict.fromkeys(flash.launches_by_route, 0)
+    reset_counts(counters)
     generate(prefill, decode, params, prompts, T)
     first = flash.launches
     tokens, step_logits, prefill_ms, step_ms = generate(
@@ -1297,6 +1403,46 @@ def run_lm(counters: dict) -> dict:
     return result
 
 
+def phase_rungs(sessions: list[dict]) -> dict:
+    """The hop kernels timed at every shape (R, Din[, Dh], Dout) the
+    sessions launched them at, with those launches: one ``kernel_rung``
+    line a shape, and per kernel the sum of launches x (ms - bound), the
+    device time its launches lose to its bound (and, for extremum_apply,
+    to the replaced K-chunked route, ``prev_ms``).  Returns the sums."""
+    checks = {"delta_apply": lambda R, Din, Dout: check_delta(
+                  torch.Generator().manual_seed(R), R, Din, Dout, False, True,
+                  timed=True),
+              "mlp_apply": lambda R, Din, Dh, Dout: check_mlp(
+                  torch.Generator().manual_seed(R), R, Din, Dh, Dout, False,
+                  True, timed=True),
+              "extremum_apply": lambda R, Din, Dout: check_extremum(
+                  torch.Generator().manual_seed(R), R, Din, Dout, True, True,
+                  timed=True)}
+    sums = {}
+    for name, check in checks.items():
+        launches = {}
+        for s in sessions:
+            for shape, n in s["by_shape"].get(name, {}).items():
+                launches[shape] = launches.get(shape, 0) + n
+        total = dict(launches=0, ms=0.0, bound_ms=0.0, loss_ms=0.0)
+        if name == "extremum_apply":
+            total["prev_ms"] = 0.0
+        for shape in sorted(launches):
+            n = launches[shape]
+            row = check(*shape)
+            row.update(launches=n, loss_ms=n * (row["ms"] - row["bound_ms"]))
+            log("kernel_rung", json.dumps(row))
+            total["launches"] += n
+            total["ms"] += n * row["ms"]
+            total["bound_ms"] += n * row["bound_ms"]
+            total["loss_ms"] += row["loss_ms"]
+            if "prev_ms" in total:
+                total["prev_ms"] += n * row["prev_ms"]
+        sums[name] = total
+    log("rungs", json.dumps(sums))
+    return sums
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -1331,6 +1477,10 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     # ---- phase 2: kernels against their plain versions -------------------
+    # the floor under every kernel time: a one-element add_, timed alike
+    one = torch.zeros(1, device=DEVICE)
+    log(f"launch floor: {device_ms(lambda: one.add_(1))} ms (one-element "
+        f"add_)")
     flash_rows = phase_flash()
     kernel_rows = phase_kernels()
 
@@ -1347,6 +1497,8 @@ def main() -> int:
     full_sessions = [run_full_session(wl, counters)
                      for wl in ("gc-s", "gc-w")]
     ripple = run_ripple_session(counters)
+    # the hop kernels at every shape the sessions launched them at
+    rungs = phase_rungs(sessions)
 
     # ---- phase 4: LM serving, flash_attention in every prefill layer -----
     lm = run_lm(counters)
@@ -1359,6 +1511,16 @@ def main() -> int:
         s["launches"]["segment_mm"] + s["bootstrap_segment_mm_launches"]
         for s in full_sessions) + sum(
         s["bootstrap_segment_mm_launches"] for s in sessions + [ripple])
+    # the partition: once per full pass (checked where each pass ran)
+    L = ARXIV["n_layers"]
+    partition_launches = sum(
+        s["partition_launches"] + s["bootstrap_segment_mm_launches"] // L
+        for s in full_sessions) + sum(
+        s["bootstrap_segment_mm_launches"] // L
+        for s in sessions + [ripple])
+    if partition_launches == 0:
+        raise AssertionError("the partition never launched on the main "
+                             "path")
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"{name} never launched on the main path")
@@ -1391,7 +1553,14 @@ def main() -> int:
             launches=launches[name], max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=None, shape=f"R={R} Din=128 Dout=128", passed=True))
+            library_ms=None, shape=f"R={R} Din=128 Dout=128",
+            main_path_ms=rungs[name]["ms"],
+            main_path_loss_ms=rungs[name]["loss_ms"], passed=True))
+        if name == "extremum_apply":
+            kernels[-1].update(kernel_route=row["route"],
+                               prev_ms=row["prev_ms"],
+                               prev_design="K-chunked route",
+                               main_path_prev_ms=rungs[name]["prev_ms"])
     # embedding_bag at the largest rectangle the gp-m session's hops used
     pnm = next(s for s in sessions if s["workload"] == "gp-m")
     B, hot = max(((c[0], c[3]) for c in pnm["hop_caps"]),
@@ -1412,8 +1581,9 @@ def main() -> int:
         shape=f"B={B} hot={hot} d=128 kept={row['kept_lanes']}",
         passed=True))
     # segment_mm at the full pass's shape, timed in phase 2
-    row = next(r for r in kernel_rows if r["kernel"] == "segment_mm"
-               and r["n"] == ARXIV["n"] and r["d"] == 128)
+    row, row40 = (next(r for r in kernel_rows if r["kernel"] == "segment_mm"
+                       and r["n"] == ARXIV["n"] and r["d"] == d)
+                  for d in (128, 40))
     kernels.append(dict(
         name="segment_mm", route="cuda",
         source="src/repro_torch/kernels/csrc/segment_mm.cu",
@@ -1423,6 +1593,13 @@ def main() -> int:
         bound_by=row["bound_by"], library_ms=row["library_ms"],
         shape=f"n={row['n']} E={row['E']} d=128 "
               f"max_in_degree={row['max_in_degree']}",
+        ms_d40=row40["ms"], library_ms_d40=row40["library_ms"],
+        bound_ms_d40=row40["bound_ms"], plain_ms_d40=row40["plain_ms"],
+        # the CSR's work items: two kernels in the same source (host clock,
+        # their readback included), against the plain partition
+        partition_launches=partition_launches,
+        partition_ms=row["partition_ms"],
+        partition_plain_ms=row["partition_plain_ms"],
         passed=True))
     # flash_attention at the prefill's shape, timed in phase 2: the wgmma
     # route, which took every prefill launch

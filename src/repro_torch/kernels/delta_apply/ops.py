@@ -25,7 +25,8 @@ def delta_apply(S, mailbox, k, W, b, *, mean: bool = False,
                 relu: bool = True):
     """Fused S' = S + M; h = act(norm(S', k) @ W + b).  Returns (S', h).
 
-    ``delta_apply.launches`` counts the kernel launches of this process.
+    ``delta_apply.launches`` counts the kernel launches of this process
+    and ``launches_by_shape`` those at each shape ``(R, Din, Dout)``.
     """
     if on_cpu(S, mailbox, k, W, b):
         return delta_apply_ref(S, mailbox, k, W, b, mean=mean, relu=relu)
@@ -53,7 +54,10 @@ def delta_apply(S, mailbox, k, W, b, *, mean: bool = False,
         raise RuntimeError(f"delta_apply kernel launch failed: CUDA error "
                            f"{err}")
     delta_apply.launches += 1
+    by_shape = delta_apply.launches_by_shape
+    by_shape[(R, Din, Dout)] = by_shape.get((R, Din, Dout), 0) + 1
     return S_new, h
 
 
 delta_apply.launches = 0
+delta_apply.launches_by_shape = {}

@@ -32,7 +32,8 @@ def mlp_apply(S, mailbox, h_prev, k, eps: float, W1, b1, W2, b2, *,
     """Fused S' = S + M; h = act(relu(((1+eps) h_prev + norm(S', k)) @ W1
     + b1) @ W2 + b2).  ``eps`` is a host float.  Returns (S', h).
 
-    ``mlp_apply.launches`` counts the kernel launches of this process.
+    ``mlp_apply.launches`` counts the kernel launches of this process
+    and ``launches_by_shape`` those at each shape ``(R, Din, Dh, Dout)``.
     """
     eps = float(eps)
     if on_cpu(S, mailbox, h_prev, k, W1, b1, W2, b2):
@@ -72,7 +73,10 @@ def mlp_apply(S, mailbox, h_prev, k, eps: float, W1, b1, W2, b2, *,
         raise RuntimeError(f"mlp_apply kernel launch failed: CUDA error "
                            f"{err}")
     mlp_apply.launches += 1
+    by_shape = mlp_apply.launches_by_shape
+    by_shape[(R, Din, Dh, Dout)] = by_shape.get((R, Din, Dh, Dout), 0) + 1
     return S_new, h
 
 
 mlp_apply.launches = 0
+mlp_apply.launches_by_shape = {}

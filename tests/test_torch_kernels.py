@@ -141,3 +141,41 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
         extremum_apply(*_torch((S, M, W, b)), reagg=_torch((S,))[0])
     assert delta_apply.launches == 0 and mlp_apply.launches == 0
     assert extremum_apply.launches == 0
+
+
+H100_SMEM = 232_448   # the shared memory an H100's block may opt in to
+# (R, Din, Dout, masked) -> (teams, rows a tile) of the resident route;
+# the arxiv sessions' rungs (R 256-65536 at Din 128, Dout 128 and 40)
+# first, then the card tests' ragged shapes
+PLANS = [((256, 128, 128, True), (1, 8)), ((1024, 128, 128, True), (1, 8)),
+         ((2048, 128, 128, True), (1, 16)), ((4096, 128, 128, True), (1, 32)),
+         ((4096, 128, 40, True), (1, 32)), ((65536, 128, 128, True), (2, 32)),
+         ((65536, 128, 40, False), (2, 32)), ((1, 48, 200, True), (1, 8)),
+         ((33, 48, 40, False), (1, 16)), ((65536, 128, 200, True), (2, 16))]
+
+
+@pytest.mark.parametrize("shape,want", PLANS)
+def test_extremum_kernel_plan_tiles_the_rows(shape, want):
+    """The resident route's tiling: every row in one tile, at most one
+    CTA per SM, shared memory within a block's 227 KB, tiles of 8-32
+    rows; two teams a CTA only where 32-row tiles outnumber the SMs (an
+    H100: 132 SMs, 227 KB a block)."""
+    from repro_torch.kernels.extremum_apply.ops import kernel_plan
+    R, Din, Dout, masked = shape
+    plan = kernel_plan(R, Din, Dout, masked, n_sm=132, smem_limit=H100_SMEM)
+    assert plan["route"] == "resident"
+    assert (plan["teams"], plan["rows"]) == want
+    tiles = -(-R // plan["rows"])
+    assert plan["smem"] <= H100_SMEM
+    assert plan["grid"] == min(132, -(-tiles // plan["teams"]))
+
+
+@pytest.mark.parametrize("R,Din,Dout", [(64, 32, 15), (33, 48, 7),
+                                        (256, 45, 128), (4096, 512, 256)])
+def test_extremum_kernel_plan_k_chunks_the_rest(R, Din, Dout):
+    """Din not a multiple of 16, Dout not of 4, or a W that does not fit
+    shared memory beside a tile: the K-chunked route, which takes every
+    shape."""
+    from repro_torch.kernels.extremum_apply.ops import kernel_plan
+    assert kernel_plan(R, Din, Dout, True, n_sm=132,
+                       smem_limit=H100_SMEM) == {"route": "kchunk"}

@@ -1,12 +1,14 @@
 """The port's CUDA kernels against their plain PyTorch versions on a card,
-at the shapes of tests/test_kernels.py plus a main-path shape, with its
-bars (1e-5 on S', 1e-4 on h; extremum_apply's S' bit-equal; embedding_bag
-1e-5 in fp32, 2e-2 in bf16; segment_mm 2e-5 in fp32, 2e-2 in bf16, and
-1e-5 of the sum of the terms' magnitudes on a hub row; flash_attention
-atol 1e-5 / rtol 1e-4 in fp32, 2e-2 in bf16, also at phi4-mini's prefill
-shape and at ragged sequence lengths, on both of its routes: the wgmma
-kernel bit-equal across launches).  Imports no JAX, so it runs where only
-PyTorch is installed:
+at the shapes of tests/test_kernels.py plus main-path shapes, with its
+bars: 1e-5 on S' and 1e-4 on h; extremum_apply's S' bit-equal, on both of
+its routes; embedding_bag 1e-5 in fp32 and 2e-2 in bf16; segment_mm 2e-5
+in fp32 and 2e-2 in bf16, 1e-5 of the sum of the terms' magnitudes on a
+hub row, bit-equal reruns, and its partition kernels equal to the plain
+partition; flash_attention atol 1e-5 / rtol 1e-4 in fp32
+and 2e-2 in bf16, also at phi4-mini's prefill shape and at ragged
+sequence lengths, on both of its routes (the wgmma kernel bit-equal
+across launches).  Imports no JAX, so it runs where only PyTorch is
+installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
@@ -20,6 +22,7 @@ from repro_torch.kernels.delta_apply.ref import delta_apply_ref
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.extremum_apply import extremum_apply
+from repro_torch.kernels.extremum_apply.ops import device_limits, kernel_plan
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.extremum_apply.ref import extremum_apply_ref
@@ -27,7 +30,8 @@ from repro_torch.kernels.mlp_apply import mlp_apply
 from repro_torch.kernels.mlp_apply.ref import mlp_apply_ref
 from repro_torch.kernels.segment_mm import (coo_to_csr, segment_mm,
                                             segment_mm_csr)
-from repro_torch.kernels.segment_mm.ref import segment_mm_ref
+from repro_torch.kernels.segment_mm.ops import EDGE_BUDGET, partition
+from repro_torch.kernels.segment_mm.ref import partition_ref, segment_mm_ref
 
 S_TOL = dict(atol=1e-5, rtol=1e-5)
 H_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -134,6 +138,64 @@ def test_extremum_apply_kernel_on_card(cuda, R, Din, Dout, maximize, masked):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 33, 256, 4096, 65536])
+@pytest.mark.parametrize("Din,Dout", [(48, 7), (48, 40), (48, 128), (48, 200),
+                                      (512, 256)])
+@pytest.mark.parametrize("masked", [True, False])
+def test_extremum_apply_routes_on_card(cuda, R, Din, Dout, masked):
+    """Both routes at the sessions' rungs and past them: one team or two,
+    ragged tiles, passes of 128 columns (Dout 200), the K-chunked route
+    for Dout 7 and for a W (512 x 256) that leaves no room beside a tile;
+    the route taken is kernel_plan's.  S' bit-equal, h within 1e-4."""
+    rng = np.random.default_rng(R + Din + Dout)
+    S, M = _rand(rng, R, Din), _rand(rng, R, Din)
+    S[rng.random(R) < 0.125] = -np.inf
+    M[rng.random(R) < 0.25] = -np.inf
+    W, b = _rand(rng, Din, Dout) / Din ** 0.5, _rand(rng, Dout)
+    args = [torch.as_tensor(a, device=cuda) for a in (S, M, W, b)]
+    kw = {}
+    if masked:
+        mask = rng.random((R, Din)) < 0.07
+        kw = dict(reagg=torch.as_tensor(_rand(rng, R, Din) * mask,
+                                        device=cuda),
+                  mask=torch.as_tensor(mask, device=cuda))
+    route = kernel_plan(R, Din, Dout, masked,
+                        *device_limits(cuda.index or 0))["route"]
+    before = dict(extremum_apply.launches_by_route)
+    Sk, hk = extremum_apply(*args, **kw, maximize=True, relu=True)
+    Sr, hr = extremum_apply_ref(*args, **kw, maximize=True, relu=True)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in
+            extremum_apply.launches_by_route.items() if n != before[r]} \
+        == {route: 1}
+    assert route == ("kchunk" if Dout % 4 or Din * Dout > 100_000
+                     else "resident")
+    assert torch.equal(Sk, Sr)
+    torch.testing.assert_close(hk, hr, **H_TOL)
+
+
+@pytest.mark.cuda
+def test_extremum_apply_unaligned_operand_takes_kchunk_on_card(cuda):
+    """An operand that is not 16-byte aligned (a view one float in) cannot
+    be bulk-copied: the K-chunked route takes it, with the same bits."""
+    rng = np.random.default_rng(4)
+    R, Din, Dout = 4096, 128, 128
+    S, M = _rand(rng, R, Din), _rand(rng, R, Din)
+    W, b = _rand(rng, Din, Dout) / Din ** 0.5, _rand(rng, Dout)
+    args = [torch.as_tensor(a, device=cuda) for a in (S, M, W, b)]
+    shifted = torch.empty(R * Din + 1, device=cuda)[1:].view(R, Din)
+    shifted.copy_(args[0])
+    before = dict(extremum_apply.launches_by_route)
+    Sa, ha = extremum_apply(*args, maximize=False, relu=False)
+    Sb, hb = extremum_apply(shifted, *args[1:], maximize=False, relu=False)
+    torch.cuda.synchronize()
+    assert extremum_apply.launches_by_route["resident"] \
+        == before["resident"] + 1
+    assert extremum_apply.launches_by_route["kchunk"] == before["kchunk"] + 1
+    assert torch.equal(Sa, Sb) and torch.equal(ha, hb)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("V,B,hot,d", [(100, 8, 1, 16), (1000, 32, 4, 64),
                                        (5000, 16, 8, 128),
                                        (3000, 64, 4096, 128)])
@@ -237,7 +299,7 @@ def test_segment_mm_kernel_on_card(cuda, n, m, d, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [128, 40])
 def test_segment_mm_hub_row_on_card(cuda, d):
-    """A row of 120,000 in-edges (the arxiv-scale hub) summed in spans:
+    """A row of 120,000 in-edges (the arxiv-scale hub) summed in chunks:
     within 1e-5 of the sum of its terms' magnitudes, per cell, of the plain
     version, and the same bits in every run."""
     rng = np.random.default_rng(2)
@@ -245,13 +307,91 @@ def test_segment_mm_hub_row_on_card(cuda, d):
     src, dst, w = _graph(rng, n, 20000, hub=120_000)
     x = torch.as_tensor(_rand(rng, n, d), device=cuda)
     csr = coo_to_csr(src, dst, w, n, cuda)
-    assert csr.long_rows.tolist() == [0] and csr.n_spans > 100
+    assert csr.long_rows.tolist() == [0] and csr.n_chunks > 100
     out = segment_mm_csr(csr, x)
     ref = segment_mm_ref(csr.col, csr.row, csr.w, x, n)
     mag = segment_mm_ref(csr.col, csr.row, csr.w.abs(), x.abs(), n)
     torch.cuda.synchronize()
     assert bool(((out - ref).abs() <= 1e-5 * mag + 1e-30).all())
     assert torch.equal(segment_mm_csr(csr, x), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 40, 128, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_mm_lane_groups_and_budget_rows_on_card(cuda, d, dtype):
+    """Rows of budget - 1, budget, budget + 1 and 2 budget + 1 edges, empty
+    rows and a hub, at widths that fill lane groups of 1, 10 and 32 lanes
+    (fp32; bf16 halves them) and a ragged one (130: masked scalar loads, a
+    second column tile): against the plain version, the same bits in a
+    rerun, and the same bits again from an x that is not 16-byte aligned
+    (the scalar path sums in the same order).  Bars: bf16 2e-2; fp32 1e-5
+    of the sum of the terms' magnitudes, as for the hub row."""
+    rng = np.random.default_rng(d)
+    n, budget = 700, EDGE_BUDGET
+    degs = rng.integers(0, 9, n)
+    degs[[5, 6, 7, 8, 9]] = [budget - 1, budget, budget + 1, 2 * budget + 1,
+                             0]
+    degs[100] = 5000
+    dst = np.repeat(np.arange(n), degs)
+    src = rng.integers(0, n, dst.size)
+    perm = rng.permutation(dst.size)
+    src, dst = src[perm], dst[perm]
+    w = rng.uniform(0.5, 1.5, dst.size).astype(np.float32)
+    x = torch.as_tensor(_rand(rng, n, d), device=cuda).to(dtype)
+    csr = coo_to_csr(src, dst, w, n, cuda)
+    assert csr.long_rows.tolist() == [7, 8, 100]
+    out, again = segment_mm_csr(csr, x), segment_mm_csr(csr, x)
+    shifted = torch.empty(n * d + 1, dtype=dtype, device=cuda)[1:].view(n, d)
+    shifted.copy_(x)
+    scalar = segment_mm_csr(csr, shifted)
+    ref = segment_mm_ref(csr.col, csr.row, csr.w, x, n)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(out, scalar)
+    assert torch.equal(out[9], torch.zeros_like(out[9]))
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+    else:   # the hub's 5,000 terms: the reordered-sum bar of the hub test
+        mag = segment_mm_ref(csr.col, csr.row, csr.w.abs(), x.abs(), n)
+        assert bool(((out - ref).abs() <= 1e-5 * mag + 1e-30).all())
+
+
+def _in_degrees(case):
+    """In-degree patterns the partition must cut: (counts, budget)."""
+    rng = np.random.default_rng(7)
+    b = 8
+    return {
+        "empty_rows": (np.zeros(21, np.int64), 4),
+        "no_rows": (np.zeros(0, np.int64), 4),
+        "budget_exactly": (np.array([b, 0, 1, b, b - 1, 2]), b),
+        "budget_plus_one": (np.array([1, b + 1, 0, b + 1, b + 1]), b),
+        "hub": (np.concatenate([rng.integers(0, 5, 300), [5000],
+                                rng.integers(0, 5, 300)]), 64),
+        "budget_one": (np.array([0, 1, 2, 0, 3, 1]), 1),
+        "runs_capped_by_rows": (np.array([0] * 40 + [1] * 30 + [0] * 9), 8),
+        "arxiv_like": (np.minimum(rng.zipf(1.8, 169_343), 120_486),
+                       EDGE_BUDGET),
+    }[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty_rows", "no_rows", "budget_exactly",
+                                  "budget_plus_one", "hub", "budget_one",
+                                  "runs_capped_by_rows", "arxiv_like"])
+def test_partition_kernels_match_plain_on_card(cuda, case):
+    """The partition's two kernels give the plain version's work items,
+    entry for entry and in its order, and count one call."""
+    counts, budget = _in_degrees(case)
+    rowptr = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]))
+    before = partition.launches
+    got = partition(rowptr.to(cuda), budget)
+    want = partition_ref(rowptr, budget)
+    assert partition.launches == before + 1
+    assert got[3] == want[3]
+    for g, r in zip(got[:3], want[:3]):
+        assert g.device.type == "cuda" and g.dtype == torch.int32
+        assert torch.equal(g.cpu(), r)
 
 
 @pytest.mark.cuda

@@ -4,8 +4,10 @@ Pallas ``segment_mm`` (interpret mode, as tests/test_kernels.py runs it)
 and its ``segment_mm_ref``, at that file's shapes, dtypes and bars (2e-5 in
 fp32, 2e-2 in bf16); the dst-major CSR that the kernel reads; and the full
 pass, whose invertible branch now goes through it with its results
-unchanged.  The CUDA kernel is held against the same plain version on the
-card (tests/test_torch_kernels_cuda.py and ``chip_smoke.py``)."""
+unchanged; and the kernel's work items (``partition``), whose walk in the
+kernel's order is held to both references.  The CUDA kernel is held
+against the same plain version on the card
+(tests/test_torch_kernels_cuda.py and ``chip_smoke.py``)."""
 import numpy as np
 import pytest
 
@@ -20,7 +22,8 @@ from repro_torch.core.full import full_inference
 from repro_torch.core.graph import powerlaw_graph
 from repro_torch.core.workloads import INVERTIBLE_WORKLOAD_NAMES, make_workload
 from repro_torch.kernels.segment_mm import coo_to_csr, segment_mm
-from repro_torch.kernels.segment_mm.ops import SPAN_EDGES
+from repro_torch.kernels.segment_mm.ops import EDGE_BUDGET, partition
+from repro_torch.kernels.segment_mm.ref import segment_mm_ref
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -64,7 +67,8 @@ def test_coo_to_csr_empty_rows_and_duplicates():
     assert csr.row.tolist() == [0, 2, 2, 2, 4, 4]
     assert csr.w.tolist() == [5.0, 1.0, 3.0, 4.0, 2.0, 6.0]
     assert csr.col.dtype == csr.rowptr.dtype == torch.int32
-    assert csr.n_src == 4 and csr.n_spans == 0
+    assert csr.n_src == 4 and csr.n_chunks == 0
+    assert csr.items is None   # the plain version reads no work items
     x = torch.arange(8, dtype=torch.float32).reshape(4, 2)
     out = segment_mm(src, dst, w, x, 6)
     expect = torch.zeros(6, 2)
@@ -74,21 +78,139 @@ def test_coo_to_csr_empty_rows_and_duplicates():
     torch.testing.assert_close(out, expect, atol=0, rtol=0)
 
 
-def test_coo_to_csr_spans_long_rows():
-    """A row of more than SPAN_EDGES in-edges is cut into spans of that
-    many edges (the hub's load balance on the card)."""
-    long_deg = 2 * SPAN_EDGES + 7
-    dst = np.concatenate([np.full(long_deg, 1), [0, 2, 2],
-                          np.full(SPAN_EDGES, 3)])
-    src = np.arange(dst.size) % 50
-    csr = coo_to_csr(src, dst, np.ones(dst.size, np.float32), 5, "cpu")
-    assert csr.long_rows.tolist() == [1]
-    assert csr.span_ptr.tolist() == [0, 3]
-    assert csr.owner.tolist() == [0, 0, 0]
-    x = torch.randn(50, 3, generator=torch.Generator().manual_seed(0))
-    out = segment_mm(src, dst, np.ones(dst.size, np.float32), x, 5)
-    torch.testing.assert_close(out[1], x[src[:long_deg]].sum(0))
-    torch.testing.assert_close(out[4], torch.zeros(3))
+def _degrees(case):
+    """In-degree patterns the partition must cut: (counts, budget)."""
+    rng = np.random.default_rng(7)
+    b = 8
+    return {
+        "empty_rows": (np.zeros(21, np.int64), 4),
+        "no_rows": (np.zeros(0, np.int64), 4),
+        "budget_exactly": (np.array([b, 0, 1, b, b - 1, 2]), b),
+        "budget_plus_one": (np.array([1, b + 1, 0, b + 1, b + 1]), b),
+        "hub": (np.concatenate([rng.integers(0, 5, 300), [5000],
+                                rng.integers(0, 5, 300)]), 64),
+        "budget_one": (np.array([0, 1, 2, 0, 3, 1]), 1),
+        "power_law": (np.minimum(rng.zipf(1.8, 2000), 3000), EDGE_BUDGET),
+        "runs_capped_by_rows": (np.array([0] * 40 + [1] * 30 + [0] * 9), 8),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["empty_rows", "no_rows", "budget_exactly",
+                                  "budget_plus_one", "hub", "budget_one",
+                                  "power_law", "runs_capped_by_rows"])
+def test_partition_covers_each_edge_once_in_csr_order(case):
+    """The kernel's work items, longest first: every edge in exactly one
+    item; every row in exactly one run or chunked; a run's edges in one
+    budget-wide window; a chunked row's chunks consecutive, in edge order,
+    budget-sized but the last; no item over the budget in edges or
+    rows."""
+    counts, budget = _degrees(case)
+    n = counts.shape[0]
+    rowptr = np.concatenate([[0], np.cumsum(counts)])
+    items, long_rows, chunk_ptr, n_chunks = partition(rowptr, budget)
+    assert items.dtype == long_rows.dtype == chunk_ptr.dtype == torch.int32
+    items, long_rows, chunk_ptr = (t.numpy() for t in (items, long_rows,
+                                                       chunk_ptr))
+    assert items.shape[1] == 4
+    sizes = items[:, 3] - items[:, 2]
+    assert (np.diff(sizes) <= 0).all()          # longest first
+    items = items[np.lexsort((items[:, 2], items[:, 0]))]   # CSR order
+    first, end, e0, e1 = (items[:, j].astype(np.int64) for j in range(4))
+    # the items' edge ranges tile [0, E) in order
+    assert (e0 <= e1).all() and (e1 - e0 <= budget).all()
+    assert e0.tolist() == [0] + e1[:-1].tolist() if len(items) else True
+    assert (e1[-1] if len(items) else 0) == rowptr[-1]
+    chunk = end < 0
+    assert long_rows.tolist() == np.flatnonzero(counts > budget).tolist()
+    # runs: whole rows, consecutive, within the budget of rows
+    runs = ~chunk
+    assert (end[runs] > first[runs]).all()
+    assert (end[runs] - first[runs] <= budget).all()
+    assert (e0[runs] == rowptr[first[runs]]).all()
+    assert (e1[runs] == rowptr[end[runs]]).all()
+    # a run's edges lie in one budget-wide window, but for a lone row's
+    crossing = runs & (e1 > e0) & (e0 // budget != (e1 - 1) // budget)
+    assert ((end - first)[crossing] == 1).all()
+    covered = np.zeros(n, np.int64)
+    for f, t in zip(first[runs], end[runs]):
+        covered[f:t] += 1
+    covered[long_rows] += 1
+    assert (covered == 1).all()
+    # chunks: slot order is edge order, a row's chunks are consecutive
+    slots = ~end[chunk]
+    assert slots.tolist() == list(range(int(chunk.sum())))
+    assert chunk_ptr[0] == 0 and chunk_ptr[-1] == chunk.sum() == n_chunks
+    for j, r in enumerate(long_rows):
+        mine = np.flatnonzero(chunk & (first == r))
+        assert (~end[mine]).tolist() == list(range(chunk_ptr[j],
+                                                   chunk_ptr[j + 1]))
+        assert np.all(np.diff(mine) == 1)
+        sizes = (e1 - e0)[mine]
+        assert (sizes[:-1] == budget).all() and 1 <= sizes[-1] <= budget
+        assert e0[mine[0]] == rowptr[r] and e1[mine[-1]] == rowptr[r + 1]
+    assert (counts[first[chunk]] > budget).all()
+
+
+def _walk(csr, parts, x: np.ndarray) -> np.ndarray:
+    """The kernel's order of summation over the work items ``parts``
+    (:func:`partition`'s) of the CSR, in fp32: a run's rows edge by edge, a
+    chunk's sum to its scratch row, then each chunked row's scratch rows
+    added in chunk order."""
+    items, long_rows, chunk_ptr, n_chunks = parts
+    col, row, w = (t.numpy() for t in (csr.col, csr.row, csr.w))
+    out = np.zeros((csr.n, x.shape[1]), np.float32)
+    partial = np.zeros((n_chunks, x.shape[1]), np.float32)
+    for first, end, e0, e1 in items.tolist():
+        acc, cur = np.zeros(x.shape[1], np.float32), first
+        for e in range(e0, e1):
+            for cur in range(cur, row[e]):
+                out[cur], acc = acc, np.zeros_like(acc)
+            cur = row[e]
+            acc = acc + w[e] * x[col[e]]
+        if end < 0:
+            partial[~end] = acc
+        else:
+            for cur in range(cur, end):
+                out[cur], acc = acc, np.zeros_like(acc)
+    for j, r in enumerate(long_rows.tolist()):
+        acc = np.zeros(x.shape[1], np.float32)
+        for slot in range(int(chunk_ptr[j]), int(chunk_ptr[j + 1])):
+            acc = acc + partial[slot]
+        out[r] = acc
+    return out
+
+
+@pytest.mark.parametrize("n,m,hub,d,budget", [(60, 300, 0, 8, 4),
+                                              (800, 2000, 700, 16, 64),
+                                              (150, 600, 129, 40,
+                                               EDGE_BUDGET),
+                                              (800, 2000, 700, 16,
+                                               EDGE_BUDGET),
+                                              (90, 0, 0, 4, 16)])
+def test_partition_walk_matches_references(n, m, hub, d, budget):
+    """A plain walk of the work items in the kernel's order (edges in CSR
+    order within an item, chunk sums in chunk order) against the plain
+    version and the JAX package's Pallas segment_mm (interpret mode), at
+    2e-3.  The edges are distinct (src, dst) pairs: the reference's
+    ``coo_to_bsr`` keeps one of a repeated pair's weights (numpy's ``+=``
+    through repeated indices), where the port and ``segment_mm_ref`` add
+    both (test_coo_to_csr_empty_rows_and_duplicates)."""
+    rng = np.random.default_rng(n + m + hub)
+    src = np.concatenate([rng.integers(0, n, m),
+                          rng.choice(n, hub, replace=False)])
+    dst = np.concatenate([rng.integers(0, n, m), np.full(hub, 3)])
+    keep = np.sort(np.unique(src * n + dst, return_index=True)[1])
+    src, dst = src[keep], dst[keep]
+    w = rng.uniform(0.5, 1.5, src.shape[0]).astype(np.float32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    csr = coo_to_csr(src, dst, w, n, "cpu")
+    parts = partition(csr.rowptr, budget)
+    assert parts[3] > 0 or (m == 0 and hub == 0)
+    got = _walk(csr, parts, x)
+    plain = segment_mm_ref(csr.col, csr.row, csr.w, torch.as_tensor(x), n)
+    pallas = jax_segment_mm(src, dst, w, jnp.asarray(x), n, blk=32)
+    for other in (plain.numpy(), np.asarray(pallas, np.float32)):
+        np.testing.assert_allclose(got, other, atol=2e-3, rtol=2e-3)
 
 
 def test_coo_to_csr_rejects_bad_ids():
