@@ -11,9 +11,15 @@ both (embedding_bag also against F.embedding_bag, segment_mm against
 torch.sparse.mm over the same CSR at d = 128 and 40, flash_attention
 against F.scaled_dot_product_attention: library yardsticks, the backend
 SDPA took printed); flash_attention is also timed at phi4-mini's prefill
-shape in bf16 (its wgmma route) and fp32 (its mma route), extremum_apply
-in turns with its K-chunked route (the design its resident route
-replaced, ``prev_ms``), and every row names the route it took.
+shape in bf16 (its wgmma route) and fp32 (its mma route); the hop
+kernels in turns with the designs their resident routes replaced
+(``prev_ms``: extremum_apply's K-chunked route, delta_apply's and
+mlp_apply's tiled route); every row names the route it took, which must
+be the kernel's plan.  delta_apply and mlp_apply then run at
+ragged shapes that reach each of their routes (R 1-65536, Din 48 and 128,
+Dh 20-128, Dout 7-200, mean and relu in all four combinations), each
+launch rerun and held bit for bit to the first; their S' is held
+bit-equal to the plain version, as extremum_apply's.
 Phase 3 drives the port's main paths, one ``device``-engine session each
 -- gc-s (delta_apply), gi-s (mlp_apply), the monotonic gs-max and gc-min
 (extremum_apply), and the bounded-recompute gp-m (embedding_bag) and ga-s
@@ -43,8 +49,9 @@ the card) runs 10 batches against the oracle, its rates labelled as the
 host's.  Then the hop kernels (delta_apply, mlp_apply, extremum_apply)
 are timed at every shape the sessions launched them at, from their
 launch counts by shape: a ``kernel_rung`` line each, with its launches,
-and a ``rungs`` line of launches x (ms - bound) summed per kernel.  Every
-extremum_apply launch of the sessions must take its resident route.
+and a ``rungs`` line of launches x (ms - bound) and launches x ms, for the
+kernel and for the design it replaced, summed per kernel.  Every hop
+kernel launch of the sessions must take a resident route.
 Phase 4 serves a language model: phi4-mini-3.8b at its published width
 and depth (32 layers, d_model 3072, 24 query and 8 kv heads of 128, d_ff
 8192, vocab 200064; 4.45 B parameters in bf16, random from a seed)
@@ -60,8 +67,9 @@ L2 1e-5 of the same model with the plain attention, and the logits of
 decode step 4 within 1e-5 of a re-prefill of the prompt and the tokens
 generated so far; in bf16 both must be within 5e-2 (LM_BARS).
 
-Any fault ends the run with a traceback and a non-zero exit; nothing is
-caught.  Without a CUDA card, or without the repository beside this file,
+Phase 1 prints ptxas's registers and spills for every kernel
+instantiation; a spill in a hop kernel fails the run.  Any fault ends the
+run with a traceback and a non-zero exit; nothing is caught.  Without a CUDA card, or without the repository beside this file,
 it exits non-zero before printing any result.  Output ends with the card
 line (nvidia-smi's name and power limit), the kernels JSON line and the
 device JSON line.
@@ -200,27 +208,78 @@ def _inputs(gen: torch.Generator, R: int, Din: int, dims: tuple[int, ...]):
     return S, M, hp, k, ws
 
 
+def route_taken(fn, before: dict) -> str:
+    """The one route ``fn`` counted a launch on since ``before``."""
+    moved = {r: n - before[r] for r, n in fn.launches_by_route.items()
+             if n != before[r]}
+    if len(moved) != 1 or sum(moved.values()) != 1:
+        raise AssertionError(f"expected one counted launch, got {moved}")
+    return next(iter(moved))
+
+
+def in_turns(fns: dict) -> dict:
+    """Each of ``fns`` timed by device_ms in turns: in order, then in
+    reverse order.  {name: (median of the two, [both])}."""
+    first = {k: device_ms(f) for k, f in fns.items()}
+    second = {k: device_ms(f) for k, f in reversed(list(fns.items()))}
+    return {k: (statistics.median([first[k], second[k]]),
+                [first[k], second[k]]) for k in fns}
+
+
+def hold_hop(label: str, Sk, hk, Sr, hr) -> None:
+    """The hop kernels' bars: S' bit-equal to the plain version, h within
+    1e-4."""
+    if not torch.equal(Sk, Sr):
+        raise AssertionError(f"{label}: S' differs from the plain version")
+    torch.testing.assert_close(hk, hr, **H_TOL)
+
+
 def check_delta(gen, R, Din, Dout, mean, relu, *, timed: bool) -> dict:
-    from repro_torch.kernels.delta_apply import delta_apply
+    """The row names the route the wrapper took, which must be
+    kernel_plan's.  Timed, it also times the tiled route at the same shape
+    in turns with it (``prev_ms``: the tiled design the resident route
+    replaced, launched through ops.launch, uncounted, held to the same
+    bars) and the product alone (``addmm_matmul_only_ms``)."""
+    from repro_torch.kernels.delta_apply import delta_apply, ops
     from repro_torch.kernels.delta_apply.ref import delta_apply_ref
     S, M, _, k, (W, b) = _inputs(gen, R, Din, (Dout,))
-    Sk, hk = delta_apply(S, M, k, W, b, mean=mean, relu=relu)
+    plan = ops.kernel_plan(R, Din, Dout, *ops.device_limits(0))
+
+    def kernel():
+        return delta_apply(S, M, k, W, b, mean=mean, relu=relu)
+
+    before = dict(delta_apply.launches_by_route)
+    Sk, hk = kernel()
     Sr, hr = delta_apply_ref(S, M, k, W, b, mean=mean, relu=relu)
     torch.cuda.synchronize()
-    torch.testing.assert_close(Sk, Sr, **S_TOL)
-    torch.testing.assert_close(hk, hr, **H_TOL)
-    row = dict(kernel="delta_apply", R=R, Din=Din, Dout=Dout, mean=mean,
-               relu=relu, err_S=(Sk - Sr).abs().max().item(),
+    route = route_taken(delta_apply, before)
+    if route != plan["route"]:
+        raise AssertionError(f"delta_apply took {route}, kernel_plan says "
+                             f"{plan}")
+    label = f"delta_apply R={R} Din={Din} Dout={Dout}"
+    hold_hop(label, Sk, hk, Sr, hr)
+    row = dict(kernel="delta_apply", route=route, R=R, Din=Din, Dout=Dout,
+               mean=mean, relu=relu, err_S=0.0,
                max_abs_err=(hk - hr).abs().max().item())
     if timed:
+        Sc, hc = torch.empty_like(Sk), torch.empty_like(hk)
+
+        def tiled():
+            ops.launch({"route": "tiled"}, S, M, k, W, b, Sc, hc, mean=mean,
+                       relu=relu)
+
+        tiled()
+        torch.cuda.synchronize()
+        hold_hop(label + " (tiled)", Sc, hc, Sr, hr)
         x = S + M
         if mean:
             x = x / k.clamp(min=1.0)[:, None]
         nbytes, flops = delta_work(R, Din, Dout)
         b_ms, b_by = bound_ms(nbytes, flops)
+        t = in_turns({"ms": kernel, "prev_ms": tiled})
         row.update(
-            ms=device_ms(lambda: delta_apply(S, M, k, W, b, mean=mean,
-                                             relu=relu)),
+            ms=t["ms"][0], ms_turns=t["ms"][1], prev_ms=t["prev_ms"][0],
+            prev_ms_turns=t["prev_ms"][1],
             plain_ms=device_ms(lambda: delta_apply_ref(S, M, k, W, b,
                                                        mean=mean, relu=relu)),
             addmm_matmul_only_ms=device_ms(lambda: torch.addmm(b, x, W)),
@@ -291,7 +350,7 @@ def check_extremum(gen, R, Din, Dout, maximize, masked, *,
 
         def kchunk():
             err = ops._launcher()(ptrs[0], ptrs[1], *mk, *ptrs[2:], R, Din,
-                                  Dout, int(maximize), 1, 0, 0, 0, stream)
+                                  Dout, int(maximize), 1, 0, 0, 0, 0, stream)
             if err:
                 raise RuntimeError(f"extremum_apply K-chunked launch: CUDA "
                                    f"error {err}")
@@ -315,34 +374,125 @@ def check_extremum(gen, R, Din, Dout, maximize, masked, *,
 
 
 def check_mlp(gen, R, Din, Dh, Dout, mean, relu, *, timed: bool) -> dict:
-    from repro_torch.kernels.mlp_apply import mlp_apply
+    """As check_delta: the route taken must be kernel_plan's; timed, the
+    tiled route (``prev_ms``) is timed in turns with the wrapper, launched
+    through ops.launch, uncounted and held to the same bars."""
+    from repro_torch.kernels.mlp_apply import mlp_apply, ops
     from repro_torch.kernels.mlp_apply.ref import mlp_apply_ref
     S, M, hp, k, (W1, b1, W2, b2) = _inputs(gen, R, Din, (Dh, Dout))
     eps = 0.37
     args = (S, M, hp, k, eps, W1, b1, W2, b2)
-    Sk, hk = mlp_apply(*args, mean=mean, relu=relu)
+    plan = ops.kernel_plan(R, Din, Dh, Dout, *ops.device_limits(0))
+
+    def kernel():
+        return mlp_apply(*args, mean=mean, relu=relu)
+
+    before = dict(mlp_apply.launches_by_route)
+    Sk, hk = kernel()
     Sr, hr = mlp_apply_ref(*args, mean=mean, relu=relu)
     torch.cuda.synchronize()
-    torch.testing.assert_close(Sk, Sr, **S_TOL)
-    torch.testing.assert_close(hk, hr, **H_TOL)
-    row = dict(kernel="mlp_apply", R=R, Din=Din, Dh=Dh, Dout=Dout,
-               mean=mean, relu=relu, err_S=(Sk - Sr).abs().max().item(),
+    route = route_taken(mlp_apply, before)
+    if route != plan["route"]:
+        raise AssertionError(f"mlp_apply took {route}, kernel_plan says "
+                             f"{plan}")
+    label = f"mlp_apply R={R} Din={Din} Dh={Dh} Dout={Dout}"
+    hold_hop(label, Sk, hk, Sr, hr)
+    row = dict(kernel="mlp_apply", route=route, R=R, Din=Din, Dh=Dh,
+               Dout=Dout, mean=mean, relu=relu, err_S=0.0,
                max_abs_err=(hk - hr).abs().max().item())
     if timed:
+        Sc, hc = torch.empty_like(Sk), torch.empty_like(hk)
+
+        def tiled():
+            ops.launch({"route": "tiled"}, *args, Sc, hc, mean=mean,
+                       relu=relu)
+
+        tiled()
+        torch.cuda.synchronize()
+        hold_hop(label + " (tiled)", Sc, hc, Sr, hr)
         x = S + M
         if mean:
             x = x / k.clamp(min=1.0)[:, None]
         z = (1.0 + eps) * hp + x
         nbytes, flops = mlp_work(R, Din, Dh, Dout)
         b_ms, b_by = bound_ms(nbytes, flops)
+        t = in_turns({"ms": kernel, "prev_ms": tiled})
         row.update(
-            ms=device_ms(lambda: mlp_apply(*args, mean=mean, relu=relu)),
+            ms=t["ms"][0], ms_turns=t["ms"][1], prev_ms=t["prev_ms"][0],
+            prev_ms_turns=t["prev_ms"][1],
             plain_ms=device_ms(lambda: mlp_apply_ref(*args, mean=mean,
                                                      relu=relu)),
             addmm_matmul_only_ms=device_ms(
                 lambda: torch.addmm(b2, torch.addmm(b1, z, W1), W2)),
             bound_ms=b_ms, bound_by=b_by)
     return row
+
+
+def phase_hop_sweep() -> int:
+    """delta_apply and mlp_apply at ragged shapes that reach every route:
+    R in {1, 7, 33, 257, 4097, 65536}, Din 48 and 128, Dout 7, 40, 128 and
+    200 (mlp_apply also Dh 20, 40 and 128), mean and relu in all four
+    combinations.  Each launch takes kernel_plan's route and is rerun:
+    S' bit-equal to the plain version, h within 1e-4, the rerun bit-equal
+    to the first run.  Returns the number of shapes checked."""
+    from repro_torch.kernels.delta_apply import delta_apply
+    from repro_torch.kernels.delta_apply import ops as delta_ops
+    from repro_torch.kernels.delta_apply.ref import delta_apply_ref
+    from repro_torch.kernels.mlp_apply import mlp_apply
+    from repro_torch.kernels.mlp_apply import ops as mlp_ops
+    from repro_torch.kernels.mlp_apply.ref import mlp_apply_ref
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    limits = delta_ops.device_limits(0)
+    routes, n = {}, 0
+    for R in (1, 7, 33, 257, 4097, 65536):
+        for Din in (48, 128):
+            S, M, hp = rand(R, Din), rand(R, Din), rand(R, Din)
+            k = torch.randint(0, 6, (R,), generator=gen,
+                              device=DEVICE).float()
+            for Dout in (7, 40, 128, 200):
+                W, b = rand(Din, Dout) / Din ** 0.5, rand(Dout)
+                cases = [("delta_apply", delta_apply,
+                          delta_ops.kernel_plan(R, Din, Dout, *limits),
+                          (S, M, k, W, b), delta_apply_ref)]
+                for Dh in (20, 40, 128):
+                    W1, b1 = rand(Din, Dh) / Din ** 0.5, rand(Dh)
+                    W2 = rand(Dh, Dout) / Dh ** 0.5
+                    cases.append(("mlp_apply", mlp_apply,
+                                  mlp_ops.kernel_plan(R, Din, Dh, Dout,
+                                                      *limits),
+                                  (S, M, hp, k, 0.37, W1, b1, W2, b),
+                                  mlp_apply_ref))
+                for name, fn, plan, args, ref in cases:
+                    for mean, relu in ((False, True), (True, False),
+                                       (True, True), (False, False)):
+                        before = dict(fn.launches_by_route)
+                        Sk, hk = fn(*args, mean=mean, relu=relu)
+                        route = route_taken(fn, before)
+                        S2, h2 = fn(*args, mean=mean, relu=relu)
+                        Sr, hr = ref(*args, mean=mean, relu=relu)
+                        torch.cuda.synchronize()
+                        label = (f"{name} R={R} Din={Din} Dout={Dout} "
+                                 f"mean={mean} relu={relu} ({route})")
+                        if route != plan["route"]:
+                            raise AssertionError(f"{label}: kernel_plan "
+                                                 f"says {plan}")
+                        hold_hop(label, Sk, hk, Sr, hr)
+                        if not (torch.equal(S2, Sk) and torch.equal(h2, hk)):
+                            raise AssertionError(f"{label}: a rerun differs")
+                        routes[(name, route)] = routes.get((name, route),
+                                                           0) + 1
+                        n += 1
+    for want in (("delta_apply", "resident"), ("delta_apply", "tiled"),
+                 ("mlp_apply", "resident"), ("mlp_apply", "tiled")):
+        if want not in routes:
+            raise AssertionError(f"the ragged sweep never took {want}")
+    log("hop_sweep", json.dumps(dict(
+        shapes=n, routes={"/".join(k): v for k, v in routes.items()})))
+    return n
 
 
 def bag_work(B: int, hot: int, d: int, kept: int,
@@ -707,6 +857,7 @@ def phase_kernels() -> list[dict]:
                                   timed=False))
     for row in rows:
         log("kernel_check", json.dumps(row))
+    phase_hop_sweep()
     return rows
 
 
@@ -879,11 +1030,16 @@ def run_session(workload: str, counters: dict, kernel: str | None) -> dict:
     by_shape = {name: dict(fn.launches_by_shape) for name, fn in
                 counters.items() if hasattr(fn, "launches_by_shape")
                 and fn.launches_by_shape}
-    routes = dict(counters["extremum_apply"].launches_by_route)
-    if routes["kchunk"]:
-        raise AssertionError(f"{workload}: extremum_apply launches by route "
-                             f"{routes}; the main path's shapes must take "
-                             f"the resident route")
+    # the hop kernels' launches by route: none on the routes the resident
+    # designs replaced
+    routes = {name: dict(counters[name].launches_by_route) for name in
+              ("delta_apply", "mlp_apply", "extremum_apply")}
+    for name, replaced in (("delta_apply", "tiled"), ("mlp_apply", "tiled"),
+                           ("extremum_apply", "kchunk")):
+        if routes[name][replaced]:
+            raise AssertionError(f"{workload}: {name} launches by route "
+                                 f"{routes[name]}; the main path's shapes "
+                                 f"must take the resident routes")
     L = ARXIV["n_layers"]
     n_batches = report.n_batches + report_p.n_batches
     if report.n_batches < 20 or (kernel is not None
@@ -925,6 +1081,8 @@ def run_session(workload: str, counters: dict, kernel: str | None) -> dict:
         updates=len(updates), timed_batches=report.n_batches, batch=BATCH,
         build_s=build_s, bootstrap_segment_mm_launches=boot,
         launches=launches, retries=eng.retries,
+        launches_by_route={name: {r: n for r, n in by.items() if n}
+                           for name, by in routes.items() if any(by.values())},
         launches_by_shape={name: {"x".join(map(str, k)): v
                                   for k, v in shapes.items()}
                            for name, shapes in by_shape.items()},
@@ -1407,8 +1565,10 @@ def phase_rungs(sessions: list[dict]) -> dict:
     """The hop kernels timed at every shape (R, Din[, Dh], Dout) the
     sessions launched them at, with those launches: one ``kernel_rung``
     line a shape, and per kernel the sum of launches x (ms - bound), the
-    device time its launches lose to its bound (and, for extremum_apply,
-    to the replaced K-chunked route, ``prev_ms``).  Returns the sums."""
+    device time its launches lose to its bound, and of launches x the time
+    of the design each kernel's resident route replaced (``prev_ms``: the
+    tiled route of delta_apply and mlp_apply, extremum_apply's K-chunked
+    route, timed in turns with it).  Returns the sums."""
     checks = {"delta_apply": lambda R, Din, Dout: check_delta(
                   torch.Generator().manual_seed(R), R, Din, Dout, False, True,
                   timed=True),
@@ -1424,9 +1584,8 @@ def phase_rungs(sessions: list[dict]) -> dict:
         for s in sessions:
             for shape, n in s["by_shape"].get(name, {}).items():
                 launches[shape] = launches.get(shape, 0) + n
-        total = dict(launches=0, ms=0.0, bound_ms=0.0, loss_ms=0.0)
-        if name == "extremum_apply":
-            total["prev_ms"] = 0.0
+        total = dict(launches=0, ms=0.0, prev_ms=0.0, bound_ms=0.0,
+                     loss_ms=0.0)
         for shape in sorted(launches):
             n = launches[shape]
             row = check(*shape)
@@ -1436,8 +1595,7 @@ def phase_rungs(sessions: list[dict]) -> dict:
             total["ms"] += n * row["ms"]
             total["bound_ms"] += n * row["bound_ms"]
             total["loss_ms"] += row["loss_ms"]
-            if "prev_ms" in total:
-                total["prev_ms"] += n * row["prev_ms"]
+            total["prev_ms"] += n * row["prev_ms"]
         sums[name] = total
     log("rungs", json.dumps(sums))
     return sums
@@ -1465,9 +1623,17 @@ def main() -> int:
     build_s = _build.build_all()
     log(f"build: {build_s:.1f} s into {_build.BUILD_DIR}")
     for name, out in _build.BUILD_LOG.items():
+        entry = "?"
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log(f"ptxas {name} {entry}: {line.strip()}")
+                if (name in ("delta_apply", "mlp_apply", "extremum_apply")
+                        and "spill" in line
+                        and "0 bytes spill stores, 0 bytes spill loads"
+                        not in line):
+                    raise AssertionError(f"{name} {entry} spills: {line}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1556,11 +1722,11 @@ def main() -> int:
             library_ms=None, shape=f"R={R} Din=128 Dout=128",
             main_path_ms=rungs[name]["ms"],
             main_path_loss_ms=rungs[name]["loss_ms"], passed=True))
-        if name == "extremum_apply":
-            kernels[-1].update(kernel_route=row["route"],
-                               prev_ms=row["prev_ms"],
-                               prev_design="K-chunked route",
-                               main_path_prev_ms=rungs[name]["prev_ms"])
+        kernels[-1].update(
+            kernel_route=row["route"], prev_ms=row["prev_ms"],
+            prev_design="K-chunked route" if name == "extremum_apply"
+            else "tiled route",
+            main_path_prev_ms=rungs[name]["prev_ms"])
     # embedding_bag at the largest rectangle the gp-m session's hops used
     pnm = next(s for s in sessions if s["workload"] == "gp-m")
     B, hot = max(((c[0], c[3]) for c in pnm["hop_caps"]),

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>.so`` at the repository root: a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds).
-A library is rebuilt when its source is newer.  :func:`build_all` starts
+A library is rebuilt when its source, or a header of ``csrc/`` that the
+source includes, is newer.  :func:`build_all` starts
 one ``nvcc`` per stale source, all at once, and waits for every one of
 them.  Nothing here runs at import time.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -41,10 +43,18 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def _inputs(name: str) -> list[Path]:
+    """The source of ``name`` and the headers of ``csrc/`` it includes."""
+    src = CSRC / f"{name}.cu"
+    headers = re.findall(r'^#include "([^"]+)"', src.read_text(), re.M)
+    return [src] + [CSRC / h for h in headers]
+
+
 def _stale(name: str) -> bool:
     lib = lib_path(name)
     return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+            or lib.stat().st_mtime < max(p.stat().st_mtime
+                                         for p in _inputs(name)))
 
 
 def build_all(names=SOURCES) -> float:

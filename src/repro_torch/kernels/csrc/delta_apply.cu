@@ -15,21 +15,66 @@
 // (Din = 128, Dout = 128) that is 16 flops per byte, under the card's
 // fp32 ridge of 67 TFLOP/s / 3.35 TB/s = 20: the kernel is bound by bytes,
 // with the fp32 FMA rate close behind (at Dout = 40 it is bytes by far).
-// What the design does about it:
+// But the sessions launch it at 256-2048 rows, where a launch is one short
+// wave and its time is latency: the W load, the input round trip and the
+// FMAs of one tile in a row.  Two routes, chosen by ops.py::kernel_plan:
+//
+// The resident route (resident_apply.cuh's resident_kernel with the fold
+// DeltaFold; Din a multiple of 16, Dout of 4, W and the staged tiles
+// within shared memory, 16-byte aligned operands):
+//   - W is loaded into shared memory once per CTA with one bulk async copy
+//     under the first tile's loads; a tile's S and M rows arrive as one
+//     bulk copy each, k's values with plain loads (R floats need not make
+//     whole 16-byte blocks), loaded a tile ahead;
+//   - one team of 4 warps owns a tile and all of Dout, so S and M are read
+//     once and S' is written once; x = norm(S') is staged in shared memory
+//     and multiplied by W with fp32 FMAs in k order, TM rows x 8 columns a
+//     thread, x and W read as float4s (no TF32: h must hold a 1e-4 bar);
+//   - the CTAs are persistent: where 32-row tiles outnumber the SMs, two
+//     teams share a CTA's W and take turns, a tile's loads running under
+//     the other team's FMAs; otherwise one team a CTA, and the tiles
+//     shrink to 8-32 rows so that the single wave spreads over the SMs;
+//   - bias and activation run in the epilogue; ragged R and Dout are
+//     masked, never padded in memory.
+// The tiled route (tiled_kernel, the design the resident route
+// replaced; every other shape):
 //   - one block per (32-row tile, 64-column out tile); the K-chunks of
 //     x = norm(S + M) for the row tile are staged through shared memory,
 //     so S, M and k are read once per out tile, and S' is written once,
 //     by the blocks of out tile 0;
-//   - the out tiles of one row tile are consecutive block indices, so a
-//     second out tile finds the row tile's S and M in L2;
 //   - W's K-chunk is staged in shared memory and read as float4; each
-//     thread accumulates a 2 x 4 register tile with fp32 FMAs (no TF32:
-//     the result must hold a 1e-4 bar against the plain version);
-//   - bias and activation run in the epilogue; ragged R, Din and Dout are
-//     masked, never padded.
+//     thread accumulates a 2 x 4 register tile with fp32 FMAs.
+// Both divide with IEEE division (no fast math), as the plain version
+// does; S' = S + M is one fp32 add, bit-equal to the plain version's.
 #include <cuda_runtime.h>
 
+#include "resident_apply.cuh"
+
 namespace {
+
+// ---- the resident route (resident_apply.cuh) ----------------------------
+
+// S' = S + M and x = mean ? S' / max(k, 1) : S', a float4 of cells at a
+// time (kv: the row's k).
+struct DeltaFold {
+  static constexpr bool MASKED = false;
+  static constexpr bool ROW_VALUES = true;
+  bool mean;
+  __device__ __forceinline__ void operator()(const float4& s,
+                                             const float4& m, const float4&,
+                                             const uchar4&, float kv, bool,
+                                             float4& f, float4& x) const {
+    f = make_float4(s.x + m.x, s.y + m.y, s.z + m.z, s.w + m.w);
+    if (mean) {
+      const float d = fmaxf(kv, 1.f);
+      x = make_float4(f.x / d, f.y / d, f.z / d, f.w / d);
+    } else {
+      x = f;
+    }
+  }
+};
+
+// ---- the tiled route ------------------------------------------------------
 
 constexpr int BR = 32;        // rows per block
 constexpr int BO = 64;        // output columns per block
@@ -37,11 +82,11 @@ constexpr int BK = 32;        // K-chunk staged in shared memory
 constexpr int THREADS = 256;  // 16 x 16 threads, each 2 rows x 4 columns
 
 __global__ void __launch_bounds__(THREADS)
-delta_apply_kernel(const float* __restrict__ S, const float* __restrict__ M,
-                   const float* __restrict__ k, const float* __restrict__ W,
-                   const float* __restrict__ b, float* __restrict__ S_new,
-                   float* __restrict__ h, int R, int Din, int Dout,
-                   int n_out_tiles, bool mean, bool relu) {
+tiled_kernel(const float* __restrict__ S, const float* __restrict__ M,
+             const float* __restrict__ k, const float* __restrict__ W,
+             const float* __restrict__ b, float* __restrict__ S_new,
+             float* __restrict__ h, int R, int Din, int Dout, int n_out_tiles,
+             bool mean, bool relu) {
   __shared__ float Xs[BR][BK + 1];  // +1: rows 2 apart hit other banks
   __shared__ __align__(16) float Ws[BK][BO];
   const int out_tile = blockIdx.x % n_out_tiles;
@@ -100,18 +145,43 @@ delta_apply_kernel(const float* __restrict__ S, const float* __restrict__ M,
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() after the launch.
-// Requires R, Din, Dout >= 1; allocates nothing.
+// Launches on `stream`; returns the CUDA error of the attribute call or the
+// launch (0 when it was accepted).  Requires R, Din, Dout >= 1.  tm = 0
+// takes the tiled route; tm = 1, 2 or 4 the resident route with tiles of
+// `br` rows (a multiple of 4 tm) and `grid` CTAs of `teams` (1 or 2) teams
+// (ops.py::kernel_plan checks the shape, the alignment and the shared
+// memory it needs).  Allocates nothing.
 extern "C" int delta_apply_launch(const float* S, const float* M,
                                   const float* k, const float* W,
                                   const float* b, float* S_new, float* h,
                                   int R, int Din, int Dout, int mean,
-                                  int relu, void* stream) {
-  const int n_out_tiles = (Dout + BO - 1) / BO;
-  const int n_row_tiles = (R + BR - 1) / BR;
-  delta_apply_kernel<<<n_row_tiles * n_out_tiles, THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      S, M, k, W, b, S_new, h, R, Din, Dout, n_out_tiles, mean != 0,
-      relu != 0);
-  return static_cast<int>(cudaGetLastError());
+                                  int relu, int tm, int br, int teams,
+                                  int grid, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DeltaFold fold{mean != 0};
+  const float* kv = mean ? k : nullptr;   // k is read only for the mean
+  switch (tm) {
+    case 0: {
+      const int n_out_tiles = (Dout + BO - 1) / BO;
+      const int n_row_tiles = (R + BR - 1) / BR;
+      tiled_kernel<<<n_row_tiles * n_out_tiles, THREADS, 0, s>>>(
+          S, M, k, W, b, S_new, h, R, Din, Dout, n_out_tiles, mean != 0,
+          relu != 0);
+      return static_cast<int>(cudaGetLastError());
+    }
+    case 1:
+      return resident::launch_resident<1>(S, M, nullptr, nullptr, kv, W, b,
+                                          S_new, h, R, Din, Dout, br, teams,
+                                          grid, fold, relu != 0, s);
+    case 2:
+      return resident::launch_resident<2>(S, M, nullptr, nullptr, kv, W, b,
+                                          S_new, h, R, Din, Dout, br, teams,
+                                          grid, fold, relu != 0, s);
+    case 4:
+      return resident::launch_resident<4>(S, M, nullptr, nullptr, kv, W, b,
+                                          S_new, h, R, Din, Dout, br, teams,
+                                          grid, fold, relu != 0, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

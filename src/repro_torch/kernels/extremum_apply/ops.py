@@ -19,77 +19,43 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, _resident
 from .._common import check_operand, cuda_device, on_cpu
+from .._resident import device_limits
 from .ref import extremum_apply_ref
 
 ROUTES = ("resident", "kchunk")
 
 
+@functools.cache
 def kernel_plan(R: int, Din: int, Dout: int, masked: bool, n_sm: int,
                 smem_limit: int) -> dict:
     """How the kernel takes ``R`` rows of ``Din`` -> ``Dout`` on a card of
     ``n_sm`` SMs whose blocks may opt in to ``smem_limit`` bytes of shared
     memory: ``{"route": "kchunk"}``, or the resident route's tiling
     (``teams`` of 4 warps a CTA, ``tm`` rows a thread, ``rows`` a tile,
-    ``grid`` CTAs, ``smem`` bytes).
+    ``grid`` CTAs, ``smem`` bytes; ``_resident.tiling``).  Cached: the
+    dict returned is shared, not to be changed.
 
-    The resident route computes h in passes of ``p`` columns (64 when Dout
-    <= 64, else 128); a team's warps are ``4 // (p // 64)`` row blocks of
-    ``4 tm`` rows by ``p // 64`` column blocks of 64 columns, so a tile has
-    ``rows = 4 // (p // 64) * 4 * tm`` rows, at most 32 (a thread's 4 x 8
-    tile at p = 128).  Where 32-row tiles would outnumber the SMs, two
-    teams share each CTA's W, with the largest tiles that still give every
-    team one.  Otherwise one team a CTA and the smallest tiles (8-32 rows)
-    that leave no SM two of them.  A tiling whose shared memory (W, then a
-    team's x and input stage; ``csrc/extremum_apply.cu`` ``Plan``) does
-    not fit takes smaller tiles, then the K-chunked route."""
-    if Din % 16 or Dout % 4:
-        return {"route": "kchunk"}
-    per_tm = 4 // ((64 if Dout <= 64 else 128) // 64) * 4   # rows a tm
-    tms = [tm for tm in (4, 2, 1) if per_tm * tm <= 32]
-    if -(-R // 32) > n_sm:   # the largest tiles that busy every team
-        teams = 2
-        first = next((tm for tm in tms
-                      if -(-R // (per_tm * tm)) >= 2 * n_sm), tms[-1])
-    else:   # the smallest tiles that leave no SM two of them
-        teams = 1
-        first = next(tm for tm in reversed(tms)
-                     if -(-R // (per_tm * tm)) <= n_sm)
-    cell = 13 if masked else 8   # bytes a staged cell takes
-    for tm in tms[tms.index(first):]:
-        rows = per_tm * tm
-        smem = (4 * Din * Dout + teams * rows * Din * (4 + cell)
-                + (teams + 1) * 8)
-        if smem <= smem_limit:
-            tiles = -(-R // rows)
-            return dict(route="resident", teams=teams, tm=tm, rows=rows,
-                        grid=min(-(-tiles // teams), n_sm), smem=smem)
-    return {"route": "kchunk"}
+    A staged cell takes 8 bytes (S, M), 13 masked (and reagg, the mask).
+    Tiles of 8, 16 or 32 rows at Dout > 64 and of 16 or 32 at Dout <= 64
+    (the row counts the resident route has always had, which its plan
+    tests pin), each with ``delta_apply``'s rows a thread for that
+    tile size (the two kernels share ``csrc/resident_apply.cuh``)."""
+    tilings = [(32, 4), (16, 2), (8, 2)] if Dout > 64 else [(32, 2), (16, 1)]
+    plan = _resident.tiling(
+        R, Din, Dout, cell_bytes=13 if masked else 8, row_bytes=0,
+        tilings=tilings, n_sm=n_sm, smem_limit=smem_limit)
+    return plan or {"route": "kchunk"}
 
 
 @functools.cache
 def _launcher():
     fn = _build.load("extremum_apply").extremum_apply_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-@functools.cache
-def device_limits(index: int) -> tuple[int, int]:
-    """(SMs, shared memory a block may opt in to, bytes) of CUDA device
-    ``index``: the two numbers :func:`kernel_plan` tiles for."""
-    query = _build.load("extremum_apply").extremum_apply_smem_optin
-    query.argtypes = [ctypes.c_int]
-    query.restype = ctypes.c_int
-    smem = query(index)
-    if smem < 0:
-        raise RuntimeError(f"cannot read the shared memory limit of CUDA "
-                           f"device {index}")
-    return torch.cuda.get_device_properties(index).multi_processor_count, \
-        smem
 
 
 def extremum_apply(S, mailbox, W, b, *, reagg=None, mask=None,
@@ -140,8 +106,7 @@ def extremum_apply(S, mailbox, W, b, *, reagg=None, mask=None,
     plan = kernel_plan(R, Din, Dout, masked, *device_limits(dev.index or 0))
     launched = (S, mailbox, W, b, S_new, h) + ((reagg, mask) if masked
                                                 else ())
-    if any(t.data_ptr() % 16 for t in launched):
-        # bulk copies and float4 accesses need 16-byte alignment
+    if not _resident.aligned(*launched):
         plan = {"route": "kchunk"}
     with torch.cuda.device(dev):
         err = _launcher()(S.data_ptr(), mailbox.data_ptr(),
@@ -149,7 +114,7 @@ def extremum_apply(S, mailbox, W, b, *, reagg=None, mask=None,
                           mask.data_ptr() if masked else None,
                           W.data_ptr(), b.data_ptr(), S_new.data_ptr(),
                           h.data_ptr(), R, Din, Dout, int(maximize),
-                          int(relu), plan.get("tm", 0),
+                          int(relu), plan.get("tm", 0), plan.get("rows", 0),
                           plan.get("teams", 0), plan.get("grid", 0),
                           torch.cuda.current_stream(dev).cuda_stream)
     if err:

@@ -23,9 +23,11 @@ from repro_torch.kernels.mlp_apply import mlp_apply
 
 S_TOL = dict(atol=1e-5, rtol=1e-5)
 H_TOL = dict(atol=1e-4, rtol=1e-4)
-DELTA_SHAPES = [(64, 32, 16), (128, 128, 128), (33, 48, 7), (256, 64, 200)]
-MLP_SHAPES = [(64, 32, 32, 16), (128, 128, 128, 128), (33, 48, 20, 7)]
-EXTREMUM_SHAPES = DELTA_SHAPES
+EXTREMUM_SHAPES = [(64, 32, 16), (128, 128, 128), (33, 48, 7), (256, 64, 200)]
+# and two rungs the arxiv sessions launch (R 256 at Dout 128, R 2048 at 40)
+DELTA_SHAPES = EXTREMUM_SHAPES + [(256, 128, 128), (2048, 128, 40)]
+MLP_SHAPES = [(64, 32, 32, 16), (128, 128, 128, 128), (33, 48, 20, 7),
+              (256, 128, 128, 128), (2048, 128, 40, 40)]
 
 
 def _delta_inputs(R, Din, Dout, seed=0):
@@ -179,3 +181,89 @@ def test_extremum_kernel_plan_k_chunks_the_rest(R, Din, Dout):
     from repro_torch.kernels.extremum_apply.ops import kernel_plan
     assert kernel_plan(R, Din, Dout, True, n_sm=132,
                        smem_limit=H100_SMEM) == {"route": "kchunk"}
+
+
+# The shapes the arxiv sessions launch delta_apply and mlp_apply at (R
+# 64-2048 at Din 128, Dout 128 and 40; PERF.md's by-rung table), and R =
+# 65536, the cap ladder's top rung
+HOP_RUNGS = [(64, 128), (256, 128), (512, 128), (1024, 40), (1024, 128),
+             (2048, 40), (2048, 128), (4096, 40), (65536, 40), (65536, 128)]
+
+
+@pytest.mark.parametrize("R,Dout", HOP_RUNGS)
+def test_delta_kernel_plan_resident_at_the_rungs(R, Dout):
+    """delta_apply's resident tiling at every rung on an H100 (132 SMs,
+    227 KB a block): tiles of 8-32 rows, a multiple of 4 rows a thread,
+    enough tiles for R and at most one CTA per SM, each team with at least
+    one; shared memory within the block's."""
+    from repro_torch.kernels.delta_apply.ops import kernel_plan
+    plan = kernel_plan(R, 128, Dout, n_sm=132, smem_limit=H100_SMEM)
+    assert plan["route"] == "resident"
+    rows, teams = plan["rows"], plan["teams"]
+    assert rows in (8, 16, 32) and rows % (4 * plan["tm"]) == 0
+    tiles = -(-R // rows)
+    assert plan["grid"] == min(132, -(-tiles // teams)) <= 132
+    assert teams == (2 if tiles > 132 else 1)
+    assert plan["smem"] == (4 * 128 * Dout
+                            + teams * (rows * 128 * 12 + -(-rows * 4 // 16)
+                                       * 16) + (teams + 1) * 8)
+    assert plan["smem"] <= H100_SMEM
+
+
+# (SMs, opt-in shared memory a block) of an H100 SXM and an H100 PCIe
+CARDS = [(132, H100_SMEM), (114, H100_SMEM)]
+
+
+@pytest.mark.parametrize("R,Dout", HOP_RUNGS)
+@pytest.mark.parametrize("n_sm,smem_limit", CARDS)
+def test_mlp_kernel_plan_resident_at_the_rungs(R, Dout, n_sm, smem_limit):
+    """mlp_apply's tiling at every rung (Dh = Dout, as the sessions run it)
+    on an H100: the resident route, with the smallest tiles of 8-32 rows
+    that cover R in one wave, or 32 rows and two stages (where they fit)
+    past that; at most one CTA per SM; shared memory within the block's."""
+    from repro_torch.kernels.mlp_apply.ops import kernel_plan, resident_smem
+    plan = kernel_plan(R, 128, Dout, Dout, n_sm=n_sm, smem_limit=smem_limit)
+    assert plan["route"] == "resident"
+    rows = plan["rows"]
+    assert rows in (8, 16, 32)
+    assert rows % (4 * plan["tm1"]) == 0 and rows % (4 * plan["tm2"]) == 0
+    tiles = -(-R // rows)
+    assert plan["grid"] == min(tiles, n_sm) <= n_sm
+    if tiles <= n_sm:
+        assert plan["ns"] == 1
+        if rows > 8:   # the smallest tiles of one wave
+            assert -(-R // (rows // 2)) > n_sm
+    else:
+        assert rows == 32
+        if plan["ns"] == 1:   # two stages do not fit
+            assert resident_smem(128, Dout, Dout, rows, 2) > smem_limit
+    assert plan["smem"] == resident_smem(128, Dout, Dout, rows,
+                                         plan["ns"]) <= smem_limit
+
+
+@pytest.mark.parametrize("Din,Dh,Dout,rows,ns,want", [
+    (128, 128, 128, 8, 1, 4 * 128 * 256 + 4 * 8 * 128 * 5 + 32 + 16),
+    (128, 40, 40, 32, 2, 4 * 40 * 168 + 4 * 32 * (128 * 7 + 40) + 128
+     + 24)])
+def test_mlp_resident_smem_lays_out_the_plan(Din, Dh, Dout, rows, ns, want):
+    """resident_smem counts W1 and W2, ns stages of S, M and h_prev, z,
+    h1, k (rounded up to 16 bytes) and ns + 1 mbarriers of 8 bytes."""
+    from repro_torch.kernels.mlp_apply.ops import resident_smem
+    assert resident_smem(Din, Dh, Dout, rows, ns) == want
+
+
+@pytest.mark.parametrize("R,Din,Dh,Dout", [(33, 48, 20, 7), (64, 32, 36, 16),
+                                           (33, 48, 20, 40), (256, 45, 128, 128),
+                                           (256, 128, 128, 42),
+                                           (32, 1024, 1024, 1024)])
+def test_hop_kernel_plans_take_tiled_for_the_rest(R, Din, Dh, Dout):
+    """Din not a multiple of 16, Dh not of 8, Dout not of 4, or weights
+    that leave no room beside a tile: the tiled route, which takes every
+    shape (mlp_apply's up to its z and h1 tiles)."""
+    from repro_torch.kernels.delta_apply.ops import kernel_plan as delta_plan
+    from repro_torch.kernels.mlp_apply.ops import kernel_plan as mlp_plan
+    assert mlp_plan(R, Din, Dh, Dout, n_sm=132,
+                    smem_limit=H100_SMEM) == {"route": "tiled"}
+    if Din % 16 or Dout % 4 or Din * Dout > 50_000:
+        assert delta_plan(R, Din, Dout, n_sm=132,
+                          smem_limit=H100_SMEM) == {"route": "tiled"}

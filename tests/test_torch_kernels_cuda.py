@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on a card,
 at the shapes of tests/test_kernels.py plus main-path shapes, with its
 bars: 1e-5 on S' and 1e-4 on h; extremum_apply's S' bit-equal, on both of
-its routes; embedding_bag 1e-5 in fp32 and 2e-2 in bf16; segment_mm 2e-5
+its routes; delta_apply's and mlp_apply's S' bit-equal and reruns
+bit-equal on both routes (resident and tiled), at ragged row counts; embedding_bag 1e-5 in fp32 and 2e-2 in bf16; segment_mm 2e-5
 in fp32 and 2e-2 in bf16, 1e-5 of the sum of the terms' magnitudes on a
 hub row, bit-equal reruns, and its partition kernels equal to the plain
 partition; flash_attention atol 1e-5 / rtol 1e-4 in fp32
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.delta_apply import delta_apply
+from repro_torch.kernels.delta_apply import ops as delta_ops
 from repro_torch.kernels.delta_apply.ref import delta_apply_ref
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
@@ -27,6 +29,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.extremum_apply.ref import extremum_apply_ref
 from repro_torch.kernels.mlp_apply import mlp_apply
+from repro_torch.kernels.mlp_apply import ops as mlp_ops
 from repro_torch.kernels.mlp_apply.ref import mlp_apply_ref
 from repro_torch.kernels.segment_mm import (coo_to_csr, segment_mm,
                                             segment_mm_csr)
@@ -100,6 +103,155 @@ def test_mlp_apply_refuses_widths_beyond_shared_memory(cuda):
     b1 = torch.zeros(Dh, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         mlp_apply(z, z, z, k, 0.0, W1, b1, W1, b1)
+
+
+def _counted(counts: dict, before: dict) -> dict:
+    return {r: n - before[r] for r, n in counts.items() if n != before[r]}
+
+
+def _held(fn, S_ref, h_ref):
+    """Run ``fn`` (which returns S', h) twice: S' bit-equal to the plain
+    version, h within 1e-4, the second run bit-equal to the first."""
+    S1, h1 = fn()
+    S2, h2 = fn()
+    torch.cuda.synchronize()
+    assert torch.equal(S1, S_ref)
+    torch.testing.assert_close(h1, h_ref, **H_TOL)
+    assert torch.equal(S1, S2) and torch.equal(h1, h2)
+
+
+MEAN_RELU = [(False, True), (True, False), (True, True), (False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 33, 257, 4097])
+@pytest.mark.parametrize("Dout", [40, 128])
+@pytest.mark.parametrize("mean,relu", MEAN_RELU)
+def test_delta_apply_routes_on_card(cuda, R, Dout, mean, relu):
+    """The wrapper takes kernel_plan's route (resident at these widths) and
+    counts it; then each route is launched on its own (ops.launch, the
+    tiled route forced).  Every route: S' bit-equal, h within 1e-4, reruns
+    bit-equal."""
+    rng = np.random.default_rng(R + Dout)
+    Din = 128
+    k = rng.integers(0, 6, size=R).astype(np.float32)
+    args = [torch.as_tensor(a, device=cuda) for a in (
+        _rand(rng, R, Din), _rand(rng, R, Din), k,
+        _rand(rng, Din, Dout) / Din ** 0.5, _rand(rng, Dout))]
+    Sr, hr = delta_apply_ref(*args, mean=mean, relu=relu)
+    plan = delta_ops.kernel_plan(R, Din, Dout,
+                                 *delta_ops.device_limits(cuda.index or 0))
+    assert plan["route"] == "resident"
+    before = dict(delta_apply.launches_by_route)
+    _held(lambda: delta_apply(*args, mean=mean, relu=relu), Sr, hr)
+    assert _counted(delta_apply.launches_by_route, before) \
+        == {plan["route"]: 2}
+    for forced in (plan, {"route": "tiled"}):
+        def run():
+            S_new = torch.empty_like(args[0])
+            h = torch.empty((R, Dout), device=cuda)
+            delta_ops.launch(forced, *args, S_new, h, mean=mean, relu=relu)
+            return S_new, h
+        _held(run, Sr, hr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 33, 257, 4097])
+@pytest.mark.parametrize("Dh,Dout", [(40, 40), (128, 40), (128, 128)])
+@pytest.mark.parametrize("mean,relu", MEAN_RELU)
+def test_mlp_apply_routes_on_card(cuda, R, Dh, Dout, mean, relu):
+    """The wrapper takes kernel_plan's route (resident at these widths)
+    and counts it; then each route is launched on its own (ops.launch, the
+    tiled route forced).  Every route: S' bit-equal, h within 1e-4, reruns
+    bit-equal."""
+    rng = np.random.default_rng(R + Dh + Dout)
+    Din = 128
+    t = [torch.as_tensor(a, device=cuda) for a in (
+        _rand(rng, R, Din), _rand(rng, R, Din), _rand(rng, R, Din),
+        rng.integers(0, 6, size=R).astype(np.float32),
+        _rand(rng, Din, Dh) / Din ** 0.5, _rand(rng, Dh),
+        _rand(rng, Dh, Dout) / Dh ** 0.5, _rand(rng, Dout))]
+    args = t[:4] + [0.37] + t[4:]
+    Sr, hr = mlp_apply_ref(*args, mean=mean, relu=relu)
+    index = cuda.index or 0
+    plan = mlp_ops.kernel_plan(R, Din, Dh, Dout,
+                               *mlp_ops.device_limits(index))
+    assert plan["route"] == "resident"
+    before = dict(mlp_apply.launches_by_route)
+    _held(lambda: mlp_apply(*args, mean=mean, relu=relu), Sr, hr)
+    assert _counted(mlp_apply.launches_by_route, before) \
+        == {plan["route"]: 2}
+    for forced in (plan, {"route": "tiled"}):
+        def run():
+            S_new = torch.empty_like(t[0])
+            h = torch.empty((R, Dout), device=cuda)
+            mlp_ops.launch(forced, *args, S_new, h, mean=mean, relu=relu)
+            return S_new, h
+        _held(run, Sr, hr)
+
+
+@pytest.mark.cuda
+def test_hop_kernels_unaligned_operand_takes_tiled_on_card(cuda):
+    """An operand that is not 16-byte aligned (a view one float in) cannot
+    be bulk-copied: delta_apply and mlp_apply take their tiled routes,
+    S' with the same bits as on the aligned operands' resident routes."""
+    rng = np.random.default_rng(5)
+    R, Din, D = 257, 128, 128
+    S, M, hp = (torch.as_tensor(_rand(rng, R, Din), device=cuda)
+                for _ in range(3))
+    k = torch.as_tensor(rng.integers(0, 6, size=R).astype(np.float32),
+                        device=cuda)
+    W = torch.as_tensor(_rand(rng, Din, D) / Din ** 0.5, device=cuda)
+    b = torch.as_tensor(_rand(rng, D), device=cuda)
+    shifted = torch.empty(R * Din + 1, device=cuda)[1:].view(R, Din)
+    shifted.copy_(S)
+    for fn, args in ((delta_apply, (M, k, W, b)),
+                     (mlp_apply, (M, hp, k, 0.37, W, b, W, b))):
+        before = dict(fn.launches_by_route)
+        Sa, ha = fn(S, *args, mean=True, relu=True)
+        Sb, hb = fn(shifted, *args, mean=True, relu=True)
+        torch.cuda.synchronize()
+        moved = _counted(fn.launches_by_route, before)
+        assert moved["tiled"] == 1 and sum(moved.values()) == 2
+        assert torch.equal(Sa, Sb)
+        torch.testing.assert_close(hb, ha, **H_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [65536])
+@pytest.mark.parametrize("Dh,Dout", [(40, 40), (128, 128)])
+def test_hop_kernels_many_tiles_on_card(cuda, R, Dh, Dout):
+    """Past one wave: delta_apply's two teams a CTA and mlp_apply's two
+    stages a CTA, persistent over many tiles; bit-equal S', reruns
+    bit-equal."""
+    rng = np.random.default_rng(Dh)
+    Din = 128
+    S, M, hp = (torch.as_tensor(_rand(rng, R, Din), device=cuda)
+                for _ in range(3))
+    k = torch.as_tensor(rng.integers(0, 6, size=R).astype(np.float32),
+                        device=cuda)
+    W = torch.as_tensor(_rand(rng, Din, Dout) / Din ** 0.5, device=cuda)
+    b = torch.as_tensor(_rand(rng, Dout), device=cuda)
+    Sr, hr = delta_apply_ref(S, M, k, W, b, mean=True, relu=True)
+    _held(lambda: delta_apply(S, M, k, W, b, mean=True, relu=True), Sr, hr)
+    W1 = torch.as_tensor(_rand(rng, Din, Dh) / Din ** 0.5, device=cuda)
+    b1 = torch.as_tensor(_rand(rng, Dh), device=cuda)
+    W2 = torch.as_tensor(_rand(rng, Dh, Dout) / Dh ** 0.5, device=cuda)
+    args = (S, M, hp, k, 0.37, W1, b1, W2, b)
+    Sr, hr = mlp_apply_ref(*args, mean=True, relu=True)
+    _held(lambda: mlp_apply(*args, mean=True, relu=True), Sr, hr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Din,Dh,Dout", [(128, 128, 128), (128, 40, 40),
+                                         (48, 200, 7), (64, 96, 200)])
+@pytest.mark.parametrize("rows,ns", [(8, 1), (16, 2), (32, 2)])
+def test_mlp_apply_shared_memory_plan_matches_kernel_on_card(cuda, Din, Dh,
+                                                              Dout, rows, ns):
+    """ops.resident_smem, which kernel_plan tiles with, is what the
+    kernel's MlpPlan lays out."""
+    assert mlp_ops.resident_smem(Din, Dh, Dout, rows, ns) \
+        == mlp_ops._lib().mlp_apply_resident_smem(Din, Dh, Dout, rows, ns)
 
 
 @pytest.mark.cuda
