@@ -66,11 +66,36 @@ parameters), the prefill logits with the kernel must be within relative
 L2 1e-5 of the same model with the plain attention, and the logits of
 decode step 4 within 1e-5 of a re-prefill of the prompt and the tokens
 generated so far; in bf16 both must be within 5e-2 (LM_BARS).
+Phase 5 serves and recovers at the same Arxiv scale.  (a) A threaded
+``GraphServer`` with 4 tenants (the stream split by ``split_stream`` with
+skew 1.0) over a ``device`` gc-s session with async dispatch and
+micro-batches of at most 100 takes the whole 3000-update stream closed
+loop, while a side thread pairs snapshot and blocking queries; then a
+fresh session takes its first 1000 updates open loop (Poisson arrivals)
+at half the closed loop's engine updates/s.  Each run zeroes every
+launch count just before its load and reads it after: delta_apply must
+have launched once per hop of every applied micro-batch and retry, and
+the bootstrap segment_mm once per layer.  After ``stop(drain=True)`` the
+published snapshot must be bit-equal to the session's state and within
+2e-3 of the oracle, every tenant's watermark covered, no query may have
+seen the published version go backwards, and a worker error would
+re-raise.  Each run prints engine updates/s, snapshot and blocking query
+latency under load and snapshot latency unloaded, the commit log's
+gather + copy and the publish, per commit.  (b) Three ``device``
+sessions (gc-s, gs-max, gp-m) journal 20 batches of 100 into a temporary
+directory, snapshotting every 10; a second session over the same
+directory restores step 10 and replays to step 20, its kernel launched
+on every hop of every replayed batch.  gs-max must come back bit-equal
+in S and H with exact witnesses, gc-s and gp-m within 2e-3 with the
+predictions equal (a near-tie of the uninterrupted logits excepted and
+counted); a restore of step 10 without replay must cut the journal to
+10 lines and delete snapshot 20.  Each prints its snapshot's bytes and
+its save, restore and replay-per-batch times.
 
 Phase 1 prints ptxas's registers and spills for every kernel
 instantiation; a spill in a hop kernel fails the run.  Any fault ends the
-run with a traceback and a non-zero exit; nothing is caught.  Without a CUDA card, or without the repository beside this file,
-it exits non-zero before printing any result.  Output ends with the card
+run with a traceback and a non-zero exit; nothing is caught.  Without a
+CUDA card, or without the repository beside this file, it exits non-zero before printing any result.  Output ends with the card
 line (nvidia-smi's name and power limit), the kernels JSON line and the
 device JSON line.
 
@@ -82,9 +107,14 @@ from __future__ import annotations
 
 import functools
 import json
+import os
+import random
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -125,6 +155,14 @@ LM = dict(arch="phi4-mini-3.8b", batch=4, prompt=2048, tokens=32,
 # rounded to bf16 (2^-8) at every layer of 32; on an NVIDIA H100 80GB HBM3
 # (700 W) it measures 0.023, and the bar is about twice that.
 LM_BARS = {"float32": 1e-5, "bfloat16": 5e-2}
+# phase 5: a threaded GraphServer with 4 tenants over a device gc-s session
+# (async dispatch), micro-batches of at most 100; the open-loop run offers
+# half the closed loop's engine updates/s over the first 1000 updates of a
+# fresh session
+SERVE = dict(tenants=4, max_batch=100, chunk=10, query_every=2,
+             query_vertices=8, open_updates=1000, unloaded_queries=2000)
+# phase 5: recovery sessions snapshot every 10 of their 20 batches of 100
+CKPT_EVERY, N_CKPT_BATCHES = 10, 20
 
 
 def log(*parts) -> None:
@@ -1601,6 +1639,299 @@ def phase_rungs(sessions: list[dict]) -> dict:
     return sums
 
 
+# ---- phase 5: serving and recovery ----------------------------------------
+def check_predictions(pred: torch.Tensor, ref: torch.Tensor,
+                      label: str) -> int:
+    """``pred`` must equal ``ref.argmax(1)`` but where ``ref``'s own top
+    two logits lie within the 2e-3 bar of each other; returns the number
+    of such near-ties that came out the other way."""
+    want = ref.argmax(dim=1)
+    bad = (pred != want).nonzero().flatten()
+    gap = (ref[bad, want[bad]] - ref[bad, pred[bad]]).abs()
+    if bad.numel() and gap.max().item() > 2e-3 * (
+            1 + ref[bad].abs().max().item()):
+        raise AssertionError(f"{label}: predictions disagree beyond ties at "
+                             f"{bad.numel()} vertices")
+    return int(bad.numel())
+
+
+def serve_run(session, updates, counters, card: str, *,
+              rate: float | None = None) -> dict:
+    """One threaded GraphServer run over ``session`` (a device gc-s session
+    with async dispatch): 4 tenants with power-law skew, a closed-loop load
+    (``rate`` None) or an open-loop one at ``rate`` requests/s, and a side
+    thread pairing snapshot and blocking
+    queries.  Every launch count is set to 0 just before the load and read
+    just after; delta_apply must have launched once per hop of every
+    applied micro-batch and retry.  After ``stop(drain=True)`` the
+    published snapshot must be bit-equal to the session's state and within
+    2e-3 of the oracle, every tenant's watermark covered, and no query may
+    have seen the published version go backwards."""
+    from repro_torch.core.full import full_inference
+    from repro_torch.serve import (ClosedLoopLoad, GraphServer, OpenLoopLoad,
+                                   latency_summary, split_stream)
+    eng = session.engine.impl
+    L, n = ARXIV["n_layers"], ARXIV["n"]
+    names = [f"t{i}" for i in range(SERVE["tenants"])]
+    per = dict(zip(names, split_stream(updates, len(names), skew=1.0,
+                                       seed=0)))
+    server = GraphServer(session, tenants=names,
+                         max_batch=SERVE["max_batch"])
+    publish, publish_s = server._publish, [0.0]
+
+    def timed_publish(aff, rows):
+        t0 = time.perf_counter()
+        publish(aff, rows)
+        publish_s[0] += time.perf_counter() - t0
+
+    server._publish = timed_publish
+    retries0, commits0 = eng.retries, eng._commits
+    log_s0 = eng.commit_log_seconds
+    versions, side_errors, done = [], [], threading.Event()
+
+    def side_queries():
+        rng = random.Random(1)
+        try:
+            while not done.is_set():
+                v = [rng.randrange(n) for _ in range(SERVE["query_vertices"])]
+                for qmode in ("snapshot", "blocking"):
+                    versions.append(server.query(names[-1], v,
+                                                 mode=qmode).version)
+        except BaseException as e:    # re-raised below, after the load
+            side_errors.append(e)
+
+    load_kw = dict(chunk=SERVE["chunk"], query_every=SERVE["query_every"],
+                   n_query_vertices=SERVE["query_vertices"], seed=0)
+    mode = "closed" if rate is None else "open"
+    load = ClosedLoopLoad(server, per, **load_kw) if rate is None \
+        else OpenLoopLoad(server, per, rate=rate, **load_kw)
+    reset_counts(counters)
+    server.start()
+    side = threading.Thread(target=side_queries, daemon=True)
+    side.start()
+    t0 = time.perf_counter()
+    rep = load.run()
+    done.set()
+    side.join(60)
+    if side.is_alive():
+        raise AssertionError("the side query thread did not stop")
+    server.stop(drain=True)          # re-raises a worker error
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if side_errors:
+        raise side_errors[0]
+    launches = {name: fn.launches for name, fn in counters.items()}
+    m = server.metrics()
+    applied = m["batches"]
+    retries = eng.retries - retries0
+    if launches["delta_apply"] != L * (applied + retries):
+        raise AssertionError(f"serve {mode}: delta_apply launched "
+                             f"{launches['delta_apply']} times for {applied} "
+                             f"micro-batches + {retries} retries x {L} hops")
+    if any(c for name, c in launches.items() if name != "delta_apply"):
+        raise AssertionError(f"serve {mode}: other kernels launched: "
+                             f"{launches}")
+    if eng._commits - commits0 != applied or server.version != applied:
+        raise AssertionError(f"serve {mode}: {eng._commits - commits0} "
+                             f"commits logged, version {server.version}, "
+                             f"{applied} micro-batches applied")
+    if rep.n_updates != len(updates) or rep.n_rejected \
+            or m["published_updates"] != len(updates):
+        raise AssertionError(f"serve {mode}: {rep.n_updates} accepted, "
+                             f"{rep.n_rejected} rejected, "
+                             f"{m['published_updates']} published of "
+                             f"{len(updates)}")
+    for name in names:
+        t = server.tenant(name)
+        if t.submitted != len(per[name]) or t.committed != t.submitted:
+            raise AssertionError(f"serve {mode}: tenant {name} submitted "
+                                 f"{t.submitted} of {len(per[name])}, "
+                                 f"committed {t.committed}")
+    if any(b < a for a, b in zip(versions, versions[1:])):
+        raise AssertionError(f"serve {mode}: a query saw the published "
+                             f"version go backwards")
+    H_pub = torch.as_tensor(server._H_pub)
+    if not torch.equal(H_pub, torch.as_tensor(session.query())):
+        raise AssertionError(f"serve {mode}: the published snapshot differs "
+                             f"from the session's state after the drain")
+    state = session.sync()
+    H_ref, _ = full_inference(session.workload, session.params,
+                              torch.as_tensor(state.H[0], device=DEVICE),
+                              *session.graph.coo(), session.graph.in_degree)
+    vs_oracle = hold_close(H_pub.to(DEVICE), H_ref[-1], f"serve {mode}")
+    # the same snapshot read with no load: a tiny read under the lock
+    rng = random.Random(2)
+    unloaded = [server.query(names[0], [rng.randrange(n) for _ in range(
+        SERVE["query_vertices"])]).latency_s
+        for _ in range(SERVE["unloaded_queries"])]
+    commits = eng._commits - commits0
+    result = dict(
+        mode=mode, card=card,
+        offered_requests_per_s=rate, updates=len(updates),
+        tenants={name: len(ups) for name, ups in per.items()},
+        wall_s=wall, micro_batches=applied, retries=retries,
+        mean_batch=len(updates) / max(applied, 1), launches=launches,
+        engine_updates_per_s=m["engine_updates_per_s"],
+        load_updates_per_s=rep.achieved_rate,
+        snapshot_query=latency_summary(m["query_latencies_s"]["snapshot"]),
+        blocking_query=latency_summary(m["query_latencies_s"]["blocking"]),
+        load_query=latency_summary(rep.query_latencies),
+        unloaded_snapshot_query=latency_summary(unloaded),
+        ingest=latency_summary(m["ingest_latencies_s"]),
+        batch_full=latency_summary(m["batch_full_latencies_s"]),
+        side_queries=len(versions),
+        commit_log_ms_per_commit=(eng.commit_log_seconds - log_s0)
+        / max(commits, 1) * 1e3,
+        publish_ms_per_commit=publish_s[0] / max(server.n_published, 1)
+        * 1e3,
+        vs_oracle=vs_oracle)
+    log("serve_run", json.dumps(result))
+    return result
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def run_recovery(workload: str, kernel: str, counters: dict,
+                 card: str) -> dict:
+    """Checkpoints and journal replay at the arxiv scale: a device session
+    journals 20 batches of 100 and snapshots every 10; a second session
+    over the same directory (a restart after a crash) restores step 10 and
+    replays the journal to step 20, its kernel launched on every hop of
+    the replayed batches.  Its state is held to the uninterrupted one's:
+    gs-max bit-equal in S and H with exact witnesses; gc-s and gp-m within
+    2e-3 (index_add_'s float atomics order the sums differently in every
+    run) with the predictions equal.  Then a restore of step 10 without
+    replay must cut the journal to 10 lines and delete step 20."""
+    L = ARXIV["n_layers"]
+    ckpt_dir = tempfile.mkdtemp(prefix=f"ripple_ckpt_{workload}_")
+    try:
+        opts = dict(ckpt_dir=ckpt_dir, ckpt_every=CKPT_EVERY)
+        first, _, _ = build_session(workload, "device", counters, **opts)
+        updates = first.make_stream(N_UPDATES, seed=1).updates
+        t0 = time.perf_counter()
+        first.ingest(updates[:N_CKPT_BATCHES * BATCH], batch_size=BATCH)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        steps = sorted(n for n in os.listdir(ckpt_dir)
+                       if n.startswith("step_"))
+        if first.step != N_CKPT_BATCHES or steps != [
+                f"step_{s:08d}" for s in (CKPT_EVERY, N_CKPT_BATCHES)]:
+            raise AssertionError(f"{workload}: step {first.step}, "
+                                 f"snapshots {steps}")
+        t0 = time.perf_counter()
+        snap = first.checkpoint()          # step 20 once more, timed
+        save_ms = (time.perf_counter() - t0) * 1e3
+        snapshot_bytes = dir_bytes(snap)
+        want = first.sync()
+        want_pred = torch.as_tensor(want.H[-1], device=DEVICE)
+
+        second, _, _ = build_session(workload, "device", counters, **opts)
+        if second.step != N_CKPT_BATCHES:
+            raise AssertionError(f"{workload}: attached at step "
+                                 f"{second.step}")
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        got_step = second.restore(step=CKPT_EVERY, replay=True)
+        torch.cuda.synchronize()
+        restore_replay_s = time.perf_counter() - t0
+        eng = second.engine.impl
+        launches = {name: fn.launches for name, fn in counters.items()}
+        replayed = N_CKPT_BATCHES - CKPT_EVERY
+        # the rebuilt engine's warm-up batch, then every replayed batch
+        if got_step != CKPT_EVERY or second.step != N_CKPT_BATCHES \
+                or launches[kernel] != L * (1 + replayed + eng.retries) \
+                or launches["segment_mm"]:
+            raise AssertionError(f"{workload}: restored {got_step} -> step "
+                                 f"{second.step}; launches {launches} for "
+                                 f"{replayed} batches + {eng.retries} "
+                                 f"retries")
+        got = second.sync()
+        result = dict(workload=workload, card=card, launches=launches,
+                      replay_retries=eng.retries)
+        if eng.monotonic:
+            for l in range(1, L + 1):
+                if not (torch.equal(torch.as_tensor(got.H[l]),
+                                    torch.as_tensor(want.H[l]))
+                        and torch.equal(torch.as_tensor(got.S[l]),
+                                        torch.as_tensor(want.S[l]))):
+                    raise AssertionError(f"{workload}: layer {l} after "
+                                         f"restore + replay is not bit-equal")
+            result.update(bit_equal=True,
+                          witnesses_checked=check_witnesses(eng),
+                          C_equal=all(torch.equal(torch.as_tensor(a),
+                                                  torch.as_tensor(b))
+                                      for a, b in zip(got.C[1:],
+                                                      want.C[1:])))
+        result["vs_uninterrupted"] = [
+            hold_close(torch.as_tensor(got.H[l], device=DEVICE),
+                       torch.as_tensor(want.H[l], device=DEVICE),
+                       f"{workload} layer {l} after replay")
+            for l in range(1, L + 1)]
+        result["max_diff"] = max(r["max_err"]
+                                 for r in result["vs_uninterrupted"])
+        result["predict_mismatch"] = check_predictions(
+            torch.as_tensor(second.predict(), device=DEVICE), want_pred,
+            f"{workload} after replay")
+        t0 = time.perf_counter()
+        if second.restore(step=CKPT_EVERY) != CKPT_EVERY:
+            raise AssertionError(f"{workload}: restore without replay")
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        with open(os.path.join(ckpt_dir, "updates.jsonl")) as f:
+            lines = sum(1 for _ in f)
+        left = sorted(n for n in os.listdir(ckpt_dir) if n.startswith("step_"))
+        if lines != CKPT_EVERY or second.journal.next_id != CKPT_EVERY \
+                or left != [f"step_{CKPT_EVERY:08d}"]:
+            raise AssertionError(f"{workload}: after the rewind the journal "
+                                 f"holds {lines} lines and the snapshots "
+                                 f"are {left}")
+        result.update(
+            snapshot_bytes=snapshot_bytes, save_ms=save_ms,
+            restore_ms=restore_ms,
+            replay_ms_per_batch=(restore_replay_s * 1e3 - restore_ms)
+            / replayed,
+            ingest_ms_per_batch=ingest_s * 1e3 / N_CKPT_BATCHES,
+            journal_bytes=os.path.getsize(os.path.join(ckpt_dir,
+                                                       "updates.jsonl")))
+        first.journal.close()
+        second.journal.close()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log("recovery", json.dumps(result))
+    return result
+
+
+def run_serving_and_recovery(counters: dict, card: str) -> dict:
+    """Phase 5 (see the module's docstring); returns its numbers."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    opts = dict(engine_options={"async_dispatch": True})
+    session, _, _ = build_session("gc-s", "device", counters, **opts)
+    updates = session.make_stream(N_UPDATES, seed=1).updates
+    closed = serve_run(session, updates, counters, card)
+    del session
+    # offer half the closed loop's engine rate, in requests: each chunk of
+    # updates is one request and every query_every-th chunk adds a query
+    rate = 0.5 * closed["engine_updates_per_s"] / SERVE["chunk"] \
+        * (1 + 1 / SERVE["query_every"])
+    session, _, _ = build_session("gc-s", "device", counters, **opts)
+    updates = session.make_stream(N_UPDATES, seed=1).updates
+    opened = serve_run(session, updates[:SERVE["open_updates"]], counters,
+                       card, rate=rate)
+    del session
+    recovery = [run_recovery(wl, kernel, counters, card)
+                for wl, kernel in (("gc-s", "delta_apply"),
+                                   ("gs-max", "extremum_apply"),
+                                   ("gp-m", "embedding_bag"))]
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log("phase5", json.dumps(dict(card=card, wall_s=wall)))
+    return dict(closed=closed, open=opened, recovery=recovery, wall_s=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -1668,6 +1999,9 @@ def main() -> int:
 
     # ---- phase 4: LM serving, flash_attention in every prefill layer -----
     lm = run_lm(counters)
+
+    # ---- phase 5: serving and recovery ------------------------------------
+    run_serving_and_recovery(counters, card)
 
     launches = {name: sum(s["launches"][name] for s in sessions)
                 for name in counters}

@@ -213,7 +213,15 @@ class DeviceAdapter:
         self._impl.flush()
 
     def enable_commit_log(self) -> None:
+        """Serving layer: record per-commit final-layer patches (captured
+        at resolve time, after the gated commit is known to have landed)."""
         self._impl.enable_commit_log()
+
+    def drain_commits(self) -> list:
+        """Serving layer: pop [(commit_idx, affected, H_final_rows)] in
+        commit order; the async pipeline's in-flight batch is excluded
+        until its resolve."""
+        return self._impl.drain_commits()
 
     @property
     def impl(self) -> DeviceEngine:
@@ -355,6 +363,6 @@ def _unported(name: str, *aliases: str, item: str) -> None:
 
 
 _unported("dist", "distributed",
-          item="ROADMAP.md Queue 1 item 10 (distributed path)")
+          item="ROADMAP.md Queue 1 item 4 (distributed path)")
 _unported("dist-rc", "dist-recompute",
-          item="ROADMAP.md Queue 1 item 10 (distributed path)")
+          item="ROADMAP.md Queue 1 item 4 (distributed path)")

@@ -2,7 +2,8 @@
 
 The paper's deployment shape (§5, §7.3): bootstrap a snapshot, ingest
 streaming updates under a latency deadline, answer embedding/label
-queries, and pick the execution backend per the hardware at hand::
+queries, checkpoint for fault tolerance, and pick the execution backend
+per the hardware at hand::
 
     session = InferenceSession.build(SessionConfig(workload="gc-s",
                                                    engine="device"))
@@ -10,17 +11,19 @@ queries, and pick the execution backend per the hardware at hand::
                              deadline_ms=5.0)
     preds   = session.predict()
     session.swap_engine("full")            # migrate state mid-stream
+    session.checkpoint(); session.restore(replay=True)
 
 Everything runs on ``SessionConfig.device`` (``"cuda"`` unless the caller
 passes ``"cpu"``); engines that declare a ``device`` option get it (device,
 full, vertexwise), and the host engines (ripple, rc) work in NumPy on the
 state that the full pass bootstrapped there.
 Engine selection always goes through ``repro_torch.api.registry``.
-Checkpoints and the update journal are not ported yet (ROADMAP.md
-Queue 1 item 4).
+Snapshots and the update journal keep the reference's formats, so either
+package restores and replays what the other wrote.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Sequence
@@ -28,6 +31,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.ckpt import (CheckpointManager, UpdateJournal,
+                              restore_pytree)
 from repro_torch.core.graph import (DynamicGraph, EdgeUpdate, FeatureUpdate,
                                     UpdateBatch, erdos_renyi, powerlaw_graph)
 from repro_torch.core.state import InferenceState
@@ -40,7 +45,6 @@ from .registry import (Engine, UpdateResult, canonical_name, engine_options,
                        make_engine)
 
 _GRAPH_GENS = {"er": erdos_renyi, "powerlaw": powerlaw_graph}
-_CKPT_TODO = "checkpoints are not ported yet: ROADMAP.md Queue 1 item 4"
 
 
 @dataclass
@@ -60,7 +64,7 @@ class SessionConfig:
     holdout_frac: float = 0.1        # edges held out for streaming re-insertion
     seed: int = 0
     deadline_ms: float = 0.0         # default ingest latency budget (0 = off)
-    ckpt_dir: str = ""               # not ported yet: must stay empty
+    ckpt_dir: str = ""
     ckpt_every: int = 10
     ckpt_keep: int = 3
     device: str = "cuda"             # torch device of params, bootstrap, engine
@@ -113,15 +117,14 @@ def _to_batch(chunk: Sequence) -> UpdateBatch:
 
 
 class InferenceSession:
-    """Facade owning graph + state + engine with ingest/query/swap."""
+    """Facade owning graph + state + engine with ingest/query/checkpoint."""
 
     def __init__(self, workload: Workload, params: list, graph: DynamicGraph,
                  state: InferenceState, engine: str = "device", *,
                  engine_options: dict | None = None, device="cuda",
                  deadline_ms: float = 0.0, ckpt_dir: str = "",
+                 ckpt_every: int = 10, ckpt_keep: int = 3,
                  holdout=None, seed: int = 0):
-        if ckpt_dir:
-            raise NotImplementedError(_CKPT_TODO)
         self.workload = workload
         self.params = params
         self.graph = graph
@@ -134,7 +137,17 @@ class InferenceSession:
         self.deadline_ms = deadline_ms
         self.holdout = holdout
         self.seed = seed
-        self.step = 0                     # micro-batches applied
+        self.step = 0                     # micro-batches applied == journal id
+        self.ckpt_dir = ckpt_dir
+        self._ckpt = CheckpointManager(ckpt_dir, every=ckpt_every,
+                                       keep=ckpt_keep) if ckpt_dir else None
+        self.journal = UpdateJournal(os.path.join(ckpt_dir, "updates.jsonl")) \
+            if ckpt_dir else None
+        if self.journal and self.journal.next_id:
+            # attaching to a dir with an existing journal: keep journal id
+            # == step so future checkpoints' coverage claim stays truthful
+            # (restore(replay=True) recovers that history)
+            self.step = self.journal.next_id
 
     def _make_engine(self, name: str, options: dict) -> Engine:
         options = dict(options)
@@ -150,8 +163,6 @@ class InferenceSession:
         path; bring-your-own-graph via ``bootstrap``).  Graph, split and
         features are those of the reference for the same seed; the weights
         come from a torch generator seeded with ``config.seed``."""
-        if config.ckpt_dir:
-            raise NotImplementedError(_CKPT_TODO)
         device = resolve_device(config.device)
         wl = make_workload(config.workload, n_layers=config.n_layers,
                            d_in=config.d_in, d_hidden=config.d_hidden,
@@ -169,8 +180,9 @@ class InferenceSession:
         state = InferenceState.bootstrap(wl, params, x, graph, device=device)
         return cls(wl, params, graph, state, config.engine,
                    engine_options=config.engine_options, device=device,
-                   deadline_ms=config.deadline_ms, holdout=holdout,
-                   seed=config.seed)
+                   deadline_ms=config.deadline_ms, ckpt_dir=config.ckpt_dir,
+                   ckpt_every=config.ckpt_every, ckpt_keep=config.ckpt_keep,
+                   holdout=holdout, seed=config.seed)
 
     @classmethod
     def bootstrap(cls, workload: Workload, params: list, x: np.ndarray,
@@ -215,8 +227,10 @@ class InferenceSession:
         set, each micro-batch is sized by an online affine latency model
         (:class:`repro_torch.serve.scheduler.LatencyModel`): the largest
         batch predicted to fit the budget, clamped to the requested
-        ``batch_size``.  ``keep_results=False`` drops the per-batch
-        ``UpdateResult`` objects (latency floats are always kept).
+        ``batch_size``.  Every micro-batch is journaled write-ahead and
+        counted in ``self.step``, so checkpoint + replay compose exactly.
+        ``keep_results=False`` drops the per-batch ``UpdateResult`` objects
+        (latency floats are always kept).
         """
         deadline = self.deadline_ms if deadline_ms is None else deadline_ms
         flat = _flatten(updates)
@@ -250,11 +264,16 @@ class InferenceSession:
         return report
 
     def apply_one(self, batch: UpdateBatch) -> UpdateResult:
-        """Apply one pre-formed micro-batch: no batching policy and no
-        flush -- a pipelined engine may still hold this batch in flight
-        when the call returns."""
+        """Journal + apply one pre-formed micro-batch: the single commit
+        point shared by ``ingest`` and the serving layer's worker.  No
+        batching policy and no flush -- a pipelined engine may still hold
+        this batch in flight when the call returns."""
+        if self.journal:
+            self.journal.append(batch)
         res = self.engine.apply_batch(batch)
         self.step += 1
+        if self._ckpt and self.step % self._ckpt.every == 0:
+            self.checkpoint()
         return res
 
     # -- query ------------------------------------------------------------
@@ -296,8 +315,67 @@ class InferenceSession:
         self.engine_options = dict(options)
         return self.engine
 
+    # -- checkpoint / restore --------------------------------------------
+    def _ckpt_tree(self, *, sync: bool = True) -> dict:
+        """The snapshot tree, the reference's key set: H, S, k, the graph's
+        src/dst/w and step, plus C (monotonic) or A/eps (bounded).  Its
+        leaves are the host state of ``sync()``, so a device engine's trash
+        row is not in them.  With ``sync=False`` the leaves may be stale:
+        only the structure is valid, which is all a restore template
+        needs."""
+        src, dst, w = self.graph.coo()
+        st = self.sync() if sync else self.state
+        tree = {"H": list(st.H), "S": list(st.S), "k": st.k,
+                "src": src, "dst": dst, "w": w,
+                "step": np.int64(self.step)}
+        if st.C is not None:
+            tree["C"] = list(st.C)
+        if st.A is not None:
+            tree["A"] = [dict(a) for a in st.A]
+            tree["eps"] = st.eps
+        return tree
+
     def checkpoint(self) -> str:
-        raise NotImplementedError(_CKPT_TODO)
+        """Durably snapshot state + graph at the current step; returns the
+        snapshot directory."""
+        if not self._ckpt:
+            raise RuntimeError("session built without ckpt_dir")
+        return self._ckpt.save(self._ckpt_tree(), self.step)
 
     def restore(self, step: int | None = None, *, replay: bool = False) -> int:
-        raise NotImplementedError(_CKPT_TODO)
+        """Restore the latest (or given) committed snapshot; returns the
+        restored step, or -1 when none exists.
+
+        A snapshot at step ``s`` holds the state after journal entries
+        ``[0, s)``; with ``replay=True`` the entries ``>= s`` are applied
+        again.  The journal is then cut to where the session stands, and
+        newer snapshots (a discarded future) are deleted.
+        """
+        if not self._ckpt:
+            raise RuntimeError("session built without ckpt_dir")
+        tree, got = restore_pytree(self._ckpt_tree(sync=False),
+                                   self.ckpt_dir, step)
+        if tree is None:
+            return -1
+        self.graph = DynamicGraph(self.graph.n, tree["src"], tree["dst"],
+                                  tree["w"])
+        self.state = InferenceState(
+            H=[np.asarray(h, dtype=np.float32) for h in tree["H"]],
+            S=[np.asarray(s, dtype=np.float32) for s in tree["S"]],
+            k=np.asarray(tree["k"], dtype=np.float32),
+            C=[np.asarray(c, dtype=np.int32) for c in tree["C"]]
+            if "C" in tree else None,
+            A=[{nm: np.asarray(v) for nm, v in a.items()} for a in tree["A"]]
+            if "A" in tree else None,
+            eps=np.asarray(tree["eps"], dtype=np.float32)
+            if "eps" in tree else None)
+        self.step = int(tree["step"])
+        self.engine = self._make_engine(self.engine_name, self.engine_options)
+        if replay and self.journal:
+            for _jid, batch in self.journal.replay(self.step):
+                self.engine.apply_batch(batch)
+                self.step += 1
+        if self.journal:
+            self.journal.truncate(self.step)
+        self._ckpt.prune_after(self.step)
+        return int(got)

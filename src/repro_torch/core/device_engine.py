@@ -57,6 +57,7 @@ budget are dropped.
 from __future__ import annotations
 
 import copy
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -1014,6 +1015,9 @@ class DeviceEngine:
         self._notes = 0         # high-water adoptions (settle-phase counter)
         self.retries = 0        # overflow retries across the stream
         self._pending = None    # (report, batch, caps, k_check)
+        self._commit_log = None   # serving: [(commit_idx, affected, rows)]
+        self._commits = 0         # batches committed since the log was enabled
+        self.commit_log_seconds = 0.0   # host clock in the log's gather + copy
         self._last_affected = np.empty(0, dtype=np.int64)
         self.last_shrink_events = 0
         self.last_rows_reaggregated = 0
@@ -1308,8 +1312,29 @@ class DeviceEngine:
             np.testing.assert_allclose(
                 self.state.k[:self.n].cpu().numpy(), k_check,
                 err_msg="device k drifted from host in-degree")
+        if self._commit_log is not None:
+            self._log_commit()
         self._pending = None
         return self._last_affected
+
+    def _log_commit(self) -> None:
+        """Record the batch that just committed: its final-layer rows,
+        gathered on the device (the ids are < n, so the trash row is never
+        read) and copied to the host.  The copy is a blocking one: the next
+        dispatch writes H[-1] in place, and the serving layer publishes
+        these rows from another thread, so they must be on the host before
+        the tuple is logged."""
+        t0 = time.perf_counter()
+        self._commits += 1
+        aff = self._last_affected
+        H = self.state.H[-1]
+        if aff.size:
+            rows = H.index_select(
+                0, torch.as_tensor(aff, device=self.device)).cpu().numpy()
+        else:
+            rows = np.zeros((0, int(H.shape[1])), np.float32)
+        self._commit_log.append((self._commits, aff.copy(), rows))
+        self.commit_log_seconds += time.perf_counter() - t0
 
     # -- main entry --------------------------------------------------------
     def apply_batch(self, batch) -> np.ndarray:
@@ -1334,10 +1359,25 @@ class DeviceEngine:
         """Drain the pipeline (resolve any in-flight batch)."""
         return self._resolve()
 
+    # -- committed-snapshot handle (serving layer) -------------------------
     def enable_commit_log(self) -> None:
-        raise NotImplementedError(
-            "the serving layer's commit log is not ported yet: ROADMAP.md "
-            "Queue 1 item 9")
+        """Start recording, per committed batch, the (affected ids, final-
+        layer rows) patch -- captured at resolve time, the instant the
+        gated commit is known to have landed, so the serving layer can
+        publish snapshots that trail the async pipeline without ever
+        observing a half-committed batch."""
+        self._resolve()          # batches already in flight predate the log
+        self._commit_log = []
+
+    def drain_commits(self) -> list:
+        """Return + clear the commits recorded since the last drain, in
+        commit order: ``[(commit_idx, affected_ids, H_final_rows)]``.  Does
+        not force the in-flight batch: an async engine's latest batch
+        appears only after its resolve (or ``flush``)."""
+        if self._commit_log is None:
+            raise RuntimeError("enable_commit_log() first")
+        out, self._commit_log = self._commit_log, []
+        return out
 
     # -- host views --------------------------------------------------------
     def host_H(self) -> list[np.ndarray]:

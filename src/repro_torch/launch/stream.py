@@ -1,7 +1,8 @@
 """Streaming-inference CLI: the serving loop for RIPPLE on one device.
 
 A thin CLI over ``repro_torch.api.InferenceSession``: graph snapshot ->
-bootstrap -> update batches -> incremental engine -> latency report, with
+bootstrap -> journaled update batches -> incremental engine -> latency
+report, with checkpoints (``--ckpt-dir``, ``--ckpt-every``) and
 deadline-driven micro-batching.  Engine selection goes through the
 registry.  Runs on the card unless ``--device cpu`` is given.
 
@@ -27,7 +28,8 @@ def build(args) -> InferenceSession:
         workload=args.workload, engine=args.engine, graph=args.graph,
         n=args.n, m=args.m, n_layers=args.layers, d_in=args.d_in,
         d_hidden=args.d_hidden, n_classes=args.classes,
-        deadline_ms=args.deadline_ms, device=args.device,
+        deadline_ms=args.deadline_ms, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every, device=args.device,
         engine_options={"tolerance": args.tolerance} if args.tolerance
         else {}))
 
@@ -48,6 +50,8 @@ def main(argv=None):
     ap.add_argument("--deadline-ms", type=float, default=0.0,
                     help="straggler mitigation: split batches that exceed "
                          "this latency budget (0 = off)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--tolerance", type=float, default=0.0,
                     help="bounded workloads: certified approximate mode, "
                          "published error <= this (0 = exact)")

@@ -1,17 +1,20 @@
-"""Deadline-driven micro-batch sizing.
+"""Admission control + deadline-driven micro-batch sizing.
 
 The latency/throughput knob the paper leaves to the operator (§7.3) made
 operational: an online latency model picks the largest micro-batch that is
-predicted to fit the ingest deadline.
+predicted to fit the ingest deadline, and a bounded queue turns sustained
+overload into explicit backpressure instead of unbounded memory growth.
 
-:class:`LatencyModel` is the estimator ``InferenceSession.ingest`` uses for
-its ``deadline_ms`` knob (the admission controller of the serving layer
-lands with ROADMAP.md Queue 1 item 9).  It is a control-loop
+:class:`LatencyModel` is the shared estimator: ``InferenceSession.ingest``
+uses it for its ``deadline_ms`` knob and :class:`AdmissionController`
+drives the serving layer's batcher from it.  It is a control-loop
 estimator, not a regression: one EWMA step per observed batch keeps it
 O(1) and lets it track regime changes (engine hot-swap, cap-ladder
 steps, graph growth) within a few batches.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 
 class LatencyModel:
@@ -68,3 +71,44 @@ class LatencyModel:
         if budget <= 0:
             return lo
         return int(min(max(budget / max(self.b, 1e-12), lo), hi))
+
+
+@dataclass
+class ControllerConfig:
+    """Serving-layer batching/admission knobs."""
+
+    deadline_ms: float = 0.0   # ingest latency budget per micro-batch (0=off)
+    max_batch: int = 256       # micro-batch ceiling (and default, no deadline)
+    capacity: int = 8192       # ingest queue bound (updates)
+    overload: str = "block"    # queue full: "block" the submitter | "reject"
+
+
+class AdmissionController:
+    """Policy half of the serving batcher (the server owns the queue).
+
+    ``next_batch_size`` picks the micro-batch from the latency model when a
+    deadline is set, and ``max_batch`` otherwise; the server never takes
+    more than the queue holds, so a shallow queue ships at once.
+    """
+
+    def __init__(self, config: ControllerConfig | None = None,
+                 model: LatencyModel | None = None):
+        self.config = config or ControllerConfig()
+        if self.config.overload not in ("block", "reject"):
+            raise ValueError(f"overload must be 'block' or 'reject', got "
+                             f"{self.config.overload!r}")
+        self.model = model or LatencyModel()
+
+    def next_batch_size(self, queue_depth: int) -> int:
+        cfg = self.config
+        bs = cfg.max_batch
+        if cfg.deadline_ms > 0:
+            bs = self.model.batch_for(cfg.deadline_ms * 1e-3, hi=cfg.max_batch)
+        return max(1, min(bs, cfg.max_batch))
+
+    def admits(self, queue_depth: int, n_new: int) -> bool:
+        """Whether ``n_new`` more updates fit the queue bound right now."""
+        return queue_depth + n_new <= self.config.capacity
+
+    def observe(self, batch_size: int, seconds: float) -> None:
+        self.model.observe(batch_size, seconds)

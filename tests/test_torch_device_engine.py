@@ -269,5 +269,5 @@ def test_k_maintained_on_device():
 def test_unported_options_raise():
     with pytest.raises(ValueError, match="bounded"):
         _engine("gc-s", tolerance=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _engine("gc-s").enable_commit_log()
+    with pytest.raises(RuntimeError, match="enable_commit_log"):
+        _engine("gc-s").drain_commits()

@@ -106,7 +106,7 @@ def test_build_and_deadline_on_cpu():
         s.query([s.graph.n])
 
 
-def test_registry_surface_matches_reference():
+def test_registry_surface_matches_reference(tmp_path):
     assert engine_names() == ref_engine_names()
     assert engine_names(canonical_only=False) \
         == ref_engine_names(canonical_only=False)
@@ -124,9 +124,11 @@ def test_registry_surface_matches_reference():
     for name in ("dist", "dist-rc"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make_engine(name, wl, [], None, None, tolerance=0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        InferenceSession.build(SessionConfig(ckpt_dir="/nonexistent",
-                                             device="cpu"))
+    s = InferenceSession.build(SessionConfig(
+        ckpt_dir=str(tmp_path), n=40, m=160, d_in=4, d_hidden=4,
+        n_classes=2, device="cpu"))
+    assert s.journal.next_id == s.step == 0
+    assert (tmp_path / "updates.jsonl").exists()
 
 
 def test_stream_cli_on_cpu(capsys):
