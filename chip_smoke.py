@@ -92,6 +92,26 @@ counted); a restore of step 10 without replay must cut the journal to
 10 lines and delete snapshot 20.  Each prints its snapshot's bytes and
 its save, restore and replay-per-batch times.
 
+Phase 6 runs the distributed path on a one-rank NCCL process group (made
+from a FileStore in a temporary directory; NCCL refuses two ranks on one
+card) at phase 3's scale and stream: ``dist`` gc-s (25 timed batches, 5
+profiled), ``dist`` gs-max (its first batch first tried at the cold-start
+caps, which must overflow and leave H, S and C bit-equal; then 25 timed
+batches) and ``dist-rc`` gc-s (5 timed batches; its pull-everything
+baseline reaches the hub of in-degree 120,486).  Each bootstrap must
+launch segment_mm once per layer of an invertible workload; every
+session is held against the oracle by phase 3's rule with predictions
+equal up to ties, gs-max's witnesses exactly; the ``dist`` gc-s final H
+and a device -> dist -> device swap in the middle of the stream are held
+against phase 3's ``device`` gc-s session.  A ``dist_session`` line each
+gives updates/s, p50/p99, retries, ladder rungs, peak GB, the profiled
+window's device busy share and ops per batch, host ms per batch, the
+partition's seconds and ``messages_per_hop`` (0 at one partition).  Then
+4 processes share the card over gloo (which takes CUDA tensors and
+stages them through the host, so its times are not NCCL's) on a (data 2,
+model 2) mesh: gc-s on ``dist`` and ``dist-rc`` for 10 batches each,
+exact on every rank, and ``dist-rc`` must ship more than 3x the slots
+(``dist_ranks`` line).
 Phase 1 prints ptxas's registers and spills for every kernel
 instantiation; a spill in a hop kernel fails the run.  Any fault ends the
 run with a traceback and a non-zero exit; nothing is caught.  Without a
@@ -924,20 +944,26 @@ def profile_window(session, updates):
              for e in top]), report
 
 
-def check_witnesses(eng) -> int:
+def check_witnesses(eng=None, state=None) -> int:
     """S[l][v,d] == H[l-1][C[l][v,d], d] exactly, on the device, wherever
-    C >= 0, and the identity (+/-inf) wherever C == -1; returns the number
-    of witnessed cells checked."""
-    n, checked = eng.n, 0
-    for l in range(1, len(eng.state.S)):
-        C = eng.state.C[l][:n].long()
-        S = eng.state.S[l][:n]
-        has = C >= 0
-        got = eng.state.H[l - 1][:n].gather(0, C.clamp(min=0))
-        if not torch.equal(got[has], S[has]):
+    C >= 0, and the identity (+/-inf) wherever C == -1, over a device
+    engine's state or a host ``state`` (a distributed session's gathered
+    one); returns the number of witnessed cells checked."""
+    if eng is not None:
+        n = eng.n
+        H, S, C = ([t[:n] for t in ts] for ts in (eng.state.H, eng.state.S,
+                                                   eng.state.C))
+    else:
+        H, S, C = ([torch.as_tensor(a, device=DEVICE) for a in arrs]
+                   for arrs in (state.H, state.S, state.C))
+    checked = 0
+    for l in range(1, len(S)):
+        has = C[l] >= 0
+        got = H[l - 1].gather(0, C[l].long().clamp(min=0))
+        if not torch.equal(got[has], S[l][has]):
             raise AssertionError(f"layer {l}: a witness does not attain "
                                  f"its extremum")
-        if torch.isfinite(S[~has]).any():
+        if torch.isfinite(S[l][~has]).any():
             raise AssertionError(f"layer {l}: an empty cell is finite")
         checked += int(has.sum())
     return checked
@@ -1050,7 +1076,8 @@ def run_session(workload: str, counters: dict, kernel: str | None) -> dict:
     """One arxiv-scale device-engine session, checked against the oracle.
     Every launch count is set to 0 just before the session is driven and
     read just after; ``kernel`` (None for a path with no kernel of its own)
-    must have run on every hop of every batch."""
+    must have run on every hop of every batch.  gc-s keeps its final H
+    (``H_final``, on the host) for phase 6."""
     from repro_torch.core.full import full_inference
     torch.cuda.reset_peak_memory_stats()
     session, build_s, boot = build_session(workload, "device", counters)
@@ -1174,6 +1201,8 @@ def run_session(workload: str, counters: dict, kernel: str | None) -> dict:
                 int(((moved > 0) & (moved < 1e-5 * scale)).sum()))
     log("session", json.dumps(result))
     result["by_shape"] = by_shape
+    if workload == "gc-s":
+        result["H_final"] = [torch.as_tensor(h) for h in state.H]
     if eng.bounded:
         # after the session line, so its numbers survive a failed check
         aux = check_bounded_aux(session)
@@ -1932,6 +1961,266 @@ def run_serving_and_recovery(counters: dict, card: str) -> dict:
     return dict(closed=closed, open=opened, recovery=recovery, wall_s=wall)
 
 
+# ---- phase 6: the distributed path ----------------------------------------
+def dist_oracle(session, label: str) -> dict:
+    """Every layer and the query against the port's full inference
+    (:func:`check_oracle`'s rule), and the predictions equal up to
+    near-ties of the oracle's own logits."""
+    from repro_torch.core.full import full_inference
+    state = session.sync()
+    H_ref, _ = full_inference(session.workload, session.params,
+                              torch.as_tensor(state.H[0], device=DEVICE),
+                              *session.graph.coo(), session.graph.in_degree)
+    layers = [hold_close(torch.as_tensor(state.H[l], device=DEVICE),
+                         H_ref[l], f"{label} layer {l}")
+              for l in range(1, len(H_ref))]
+    hold_close(torch.as_tensor(session.query(), device=DEVICE), H_ref[-1],
+               f"{label} query")
+    ties = check_predictions(
+        torch.as_tensor(session.predict(), device=DEVICE), H_ref[-1], label)
+    return dict(vs_oracle_per_layer=layers, predict_near_ties=ties)
+
+
+def dist_batches(session, updates, n_batches: int) -> dict:
+    """``n_batches`` batches of BATCH, one ``ingest`` each: their latencies
+    and the engine's host seconds (routing, CSR maintenance, uploads)."""
+    eng = session.engine.impl
+    lat, host, affected, comm = [], [], [], []
+    for b in range(n_batches):
+        rep = session.ingest(updates[b * BATCH:(b + 1) * BATCH],
+                             batch_size=BATCH)
+        lat.append(rep.latencies[0])
+        host.append(eng.last_host_seconds)
+        affected.append(int(rep.results[0].affected.size))
+        comm.append(rep.results[0].messages_per_hop)
+    torch.cuda.synchronize()
+    p50 = statistics.median(lat) * 1e3
+    return dict(batches=n_batches, steady_ups=BATCH / (p50 * 1e-3),
+                p50_ms=p50,
+                p99_ms=float(torch.tensor(lat).quantile(0.99)) * 1e3,
+                host_ms_per_batch=statistics.mean(host) * 1e3,
+                host_ms_per_batch_p50=statistics.median(host) * 1e3,
+                affected_per_batch=affected, messages_per_hop=comm[-1])
+
+
+def dist_session(workload: str, engine: str, counters: dict, card: str, *,
+                 n_batches: int, n_profiled: int = 0,
+                 overflow_check: bool = False, **options):
+    """One arxiv-scale ``dist``/``dist-rc`` session on the one-rank NCCL
+    group: built (the bootstrap's segment_mm launches checked by
+    :func:`build_session`), driven for ``n_batches`` timed batches of the
+    3000-update stream and ``n_profiled`` more under the profiler, then
+    held against the oracle.  With ``overflow_check`` the first batch is
+    first tried at the cold-start caps, which cannot hold it: the attempt
+    must report overflow and leave H, S and C bit-equal, and the ladder
+    then lands the batch.  Prints the ``dist_session`` line; returns
+    (session, result)."""
+    from repro_torch.core.graph import UpdateBatch
+    torch.cuda.reset_peak_memory_stats()
+    session, build_s, boot = build_session(
+        workload, engine, counters, engine_options=options)
+    eng = session.engine.impl
+    if eng.device.type != DEVICE or eng.comm.M != 1 or eng.n_parts != 1:
+        raise AssertionError(f"{workload}/{engine}: the engine runs on "
+                             f"{eng.device} over {eng.n_parts} x {eng.comm.M}")
+    updates = session.make_stream(N_UPDATES, seed=1).updates
+    result = dict(workload=workload, engine=engine, card=card,
+                  n=ARXIV["n"], edges=session.graph.num_edges,
+                  layers=ARXIV["n_layers"], width=ARXIV["d_hidden"],
+                  classes=ARXIV["n_classes"], batch=BATCH,
+                  mode=eng.mode, mesh=[eng.n_parts, eng.comm.M],
+                  backend=torch.distributed.get_backend(),
+                  build_s=build_s, partition_s=eng.partition_seconds,
+                  bootstrap_segment_mm_launches=boot)
+    if overflow_check:
+        first = updates[:BATCH]
+        batch = UpdateBatch(
+            edges=[u for u in first if hasattr(u, "src")],
+            features=[u for u in first if not hasattr(u, "src")])
+        np_b, out_rows, in_rows = eng._route(batch)
+        eng.out_csr.refresh_rows(out_rows)
+        if eng.in_csr is not None:
+            eng.in_csr.refresh_rows(in_rows)
+        db, k = eng._upload_batch(np_b)
+        # the state rows: the trash row at n_local takes the dropped writes
+        rows = eng.n_local
+        before = [t[:rows].clone() for t in eng.H + eng.S + (eng.C or ())]
+        caps = eng._caps(0)
+        st, report = eng._run(db, k, caps)
+        eng._commit_state(st)
+        if not eng._read(report, caps)[0]:
+            raise AssertionError(f"{workload}/{engine}: the cold-start caps "
+                                 f"{caps} held the first batch")
+        after = eng.H + eng.S + (eng.C or ())
+        if not all(torch.equal(a, b[:rows]) for a, b in zip(before, after)):
+            raise AssertionError(f"{workload}/{engine}: an overflowing "
+                                 f"attempt changed the state")
+        eng._dispatch(db, k)
+        eng._resolve()
+        session.step += 1
+        result.update(overflow_caps=[list(c) for c in caps[0]],
+                      overflow_commits_nothing=True)
+        updates = updates[BATCH:]
+    result.update(dist_batches(session, updates, n_batches))
+    if n_profiled:
+        profiled, _ = profile_window(
+            session, updates[n_batches * BATCH:
+                             (n_batches + n_profiled) * BATCH])
+        result["profiled"] = profiled
+    result.update(
+        retries=eng.retries, ladder_rungs=eng.ladder_rungs,
+        compiles=eng.compiles,
+        needed_per_hop_max=None if eng._hw is None else eng._hw.tolist(),
+        caps=[list(c) for c in eng._caps(0)[0]],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    result.update(dist_oracle(session, f"{workload}/{engine}"))
+    if eng.monotonic:
+        result["witnesses_checked"] = check_witnesses(state=session.sync())
+    log("dist_session", json.dumps(result))
+    return session, result
+
+
+def run_distributed(counters: dict, card: str, H_device: list) -> dict:
+    """Phase 6: the ``dist`` engines on a one-rank NCCL process group
+    (world size 1: NCCL refuses two ranks on one card) at phase 3's scale
+    and width.  gc-s (ripple: 25 timed batches, 5 profiled), gs-max (25
+    timed batches after the overflow check) and ``dist-rc`` gc-s (5 timed
+    batches: its pull-everything baseline reaches the hub), each exact
+    against the oracle; the ``dist`` gc-s final H and a device -> dist ->
+    device swap in the middle of the stream both against phase 3's
+    ``device`` gc-s session over the same stream (``H_device``)."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="dist_store_") as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            L = ARXIV["n_layers"]
+            gcs, res_gcs = dist_session("gc-s", "dist", counters, card,
+                                        n_batches=25, n_profiled=5)
+            vs_device = [hold_close(
+                torch.as_tensor(gcs.sync().H[l], device=DEVICE),
+                H_device[l].to(DEVICE), f"dist vs device gc-s, layer {l}")
+                for l in range(1, L + 1)]
+            del gcs
+            _, res_max = dist_session("gs-max", "dist", counters, card,
+                                      n_batches=25, overflow_check=True,
+                                      min_bucket=16)
+            _, res_rc = dist_session("gc-s", "dist-rc", counters, card,
+                                     n_batches=5)
+            swap = run_swap_round_trip(counters, H_device)
+        finally:
+            dist.destroy_process_group()
+    ranks = run_gloo_ranks(card)
+    torch.cuda.empty_cache()
+    out = dict(card=card, wall_s=time.perf_counter() - t0,
+               dist_vs_device_per_layer=vs_device, swap=swap,
+               gloo_ranks_wall_s=ranks["wall_s"])
+    log("phase6", json.dumps(out))
+    return dict(sessions=[res_gcs, res_max, res_rc], **out)
+
+
+def dist_rank(rank: int, world: int, run_dir: str, cfg: dict) -> None:
+    """One of phase 6's ranks sharing the card over gloo (spawned by
+    :func:`run_gloo_ranks`): gc-s on ``dist`` and then ``dist-rc`` over a
+    (data 2, model 2) mesh, ``cfg["batches"]`` batches each, every rank
+    held against the oracle; rank 0 writes the results."""
+    global DEVICE
+    DEVICE = cfg["device"]
+    torch.set_num_threads(2)     # 4 ranks on the host's 8 cores
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)     # every rank on the one card
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.api import InferenceSession, SessionConfig
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(run_dir, "store"), world),
+        rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh(DEVICE, cfg["mesh"],
+                                mesh_dim_names=("data", "model"))
+        out = {}
+        for engine in ("dist", "dist-rc"):
+            session = InferenceSession.build(SessionConfig(
+                workload="gc-s", engine=engine, graph="powerlaw",
+                holdout_frac=0.1, seed=0, device=DEVICE,
+                engine_options={"mesh": mesh}, **cfg["arxiv"]))
+            eng = session.engine.impl
+            updates = session.make_stream(cfg["n_updates"], seed=1).updates
+            b = cfg["batch"]
+            lat, comm = [], []
+            for i in range(cfg["batches"]):
+                rep = session.ingest(updates[i * b:(i + 1) * b],
+                                     batch_size=b)
+                lat.append(rep.latencies[0])
+                comm.append(rep.results[0].messages_per_hop)
+            out[engine] = dict(
+                mesh=[eng.n_parts, eng.M], device=str(eng.device),
+                partition_s=eng.partition_seconds,
+                p50_ms=statistics.median(lat) * 1e3, retries=eng.retries,
+                messages_per_hop=comm, total_messages=sum(map(sum, comm)),
+                **dist_oracle(session, f"{engine} on {world} ranks, "
+                                       f"rank {rank}"))
+            del session, eng
+        if rank == 0:
+            with open(os.path.join(run_dir, "out.json"), "w") as f:
+                json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_gloo_ranks(card: str) -> dict:
+    """Four ranks on the one card over gloo (which takes CUDA tensors and
+    stages them through the host, so its times are not NCCL's): gc-s on
+    ``dist`` and ``dist-rc`` for 10 batches each, exact on every rank, and
+    ``dist-rc`` must ship more than 3x the slots ``dist`` ships."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = dict(device=DEVICE, mesh=(2, 2), arxiv=ARXIV, n_updates=N_UPDATES,
+               batch=BATCH, batches=10)
+    with tempfile.TemporaryDirectory(prefix="gloo_ranks_") as tmp:
+        mp.spawn(dist_rank, args=(4, tmp, cfg), nprocs=4)
+        with open(os.path.join(tmp, "out.json")) as f:
+            out = json.load(f)
+    ripple, rc = (out[e]["total_messages"] for e in ("dist", "dist-rc"))
+    if not rc > 3 * ripple > 0:
+        raise AssertionError(f"4 ranks: dist-rc shipped {rc} slots, dist "
+                             f"{ripple}")
+    result = dict(note="gloo stages through the host: its times are not "
+                       "NCCL's", card=card, ranks=4, mesh=list(cfg["mesh"]),
+                  batches=cfg["batches"], rc_over_ripple=rc / ripple,
+                  wall_s=time.perf_counter() - t0, **out)
+    log("dist_ranks", json.dumps(result))
+    return result
+
+
+def run_swap_round_trip(counters: dict, H_device: list) -> list:
+    """device -> dist -> device in the middle of the gc-s stream (10
+    batches each) against never swapping (phase 3's device session)."""
+    L = ARXIV["n_layers"]
+    session, _, _ = build_session("gc-s", "device", counters)
+    updates = session.make_stream(N_UPDATES, seed=1).updates
+    third = N_UPDATES // 3
+    session.ingest(updates[:third], batch_size=BATCH)
+    session.swap_engine("dist")
+    if session.engine.impl.device.type != DEVICE:
+        raise AssertionError("the swapped-in dist engine is not on the card")
+    session.ingest(updates[third:2 * third], batch_size=BATCH)
+    session.swap_engine("device")
+    session.ingest(updates[2 * third:], batch_size=BATCH)
+    state = session.sync()
+    return [hold_close(torch.as_tensor(state.H[l], device=DEVICE),
+                       H_device[l].to(DEVICE), f"swap round trip, layer {l}")
+            for l in range(1, L + 1)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -2003,6 +2292,10 @@ def main() -> int:
     # ---- phase 5: serving and recovery ------------------------------------
     run_serving_and_recovery(counters, card)
 
+    # ---- phase 6: the distributed path ------------------------------------
+    gcs = next(s for s in sessions if s["workload"] == "gc-s")
+    distributed = run_distributed(counters, card, gcs.pop("H_final"))
+
     launches = {name: sum(s["launches"][name] for s in sessions)
                 for name in counters}
     launches["flash_attention"] = lm["launches"]["flash_attention"]
@@ -2010,14 +2303,15 @@ def main() -> int:
     launches["segment_mm"] = sum(
         s["launches"]["segment_mm"] + s["bootstrap_segment_mm_launches"]
         for s in full_sessions) + sum(
-        s["bootstrap_segment_mm_launches"] for s in sessions + [ripple])
+        s["bootstrap_segment_mm_launches"]
+        for s in sessions + [ripple] + distributed["sessions"])
     # the partition: once per full pass (checked where each pass ran)
     L = ARXIV["n_layers"]
     partition_launches = sum(
         s["partition_launches"] + s["bootstrap_segment_mm_launches"] // L
         for s in full_sessions) + sum(
         s["bootstrap_segment_mm_launches"] // L
-        for s in sessions + [ripple])
+        for s in sessions + [ripple] + distributed["sessions"])
     if partition_launches == 0:
         raise AssertionError("the partition never launched on the main "
                              "path")

@@ -4,7 +4,6 @@
 from .registry import (Engine, EngineOption, UpdateResult,  # noqa: F401
                        canonical_name, engine_names, engine_options,
                        make_engine, normalize_options, register_engine)
-from . import engines  # noqa: F401  (registers the engines + the names
-#                                     still to be ported)
+from . import engines  # noqa: F401  (registers the engines)
 from .session import (InferenceSession, IngestReport,  # noqa: F401
                       SessionConfig)

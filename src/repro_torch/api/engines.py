@@ -17,12 +17,15 @@ Registered backends:
     full        from-scratch layer-wise inference over the whole graph on
                 every batch (the exactness oracle as an engine)
 
+    dist        distributed incremental RIPPLE over a (data, model) mesh of
+                torch.distributed ranks (paper §5) -- declares mesh/mode/
+                data_axes options
+    dist-rc     the pull-based distributed recompute baseline (paper fig 12)
+
 The host engines work on the host ``InferenceState`` that the full pass
 bootstrapped on the session's device; ``full`` and ``vertexwise.sync`` run
 that pass (``segment_mm`` for the invertible workloads) on their ``device``.
-The reference's distributed names (dist, dist-rc) are registered too, so
-the name table matches; building one raises ``NotImplementedError`` naming
-the ROADMAP.md item where it lands.
+The distributed engines run on their mesh's device.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import torch
 
 from repro_torch.core.aggregators import compute_contributors
 from repro_torch.core.device_engine import DeviceEngine
+from repro_torch.core.dist_host import DistEngine
 from repro_torch.core.engine import RecomputeEngine, RippleEngine
 from repro_torch.core.full import bounded_aux, full_inference
 from repro_torch.core.graph import DynamicGraph, UpdateBatch
@@ -40,6 +44,7 @@ from repro_torch.core.state import (InferenceState, _to_numpy, aux_to_numpy,
                                     params_to_numpy)
 from repro_torch.core.vertexwise import VertexWiseEngine
 from repro_torch.core.workloads import Workload
+from repro_torch.launch.mesh import default_mesh
 from repro_torch.utils import resolve_device
 
 from .registry import EngineOption, UpdateResult, register_engine
@@ -354,15 +359,154 @@ class VertexWiseAdapter:
         return self.sync()
 
 
-def _unported(name: str, *aliases: str, item: str) -> None:
-    """Register a reference engine name whose port is still to come."""
-    def factory(*args, **kwargs):
-        raise NotImplementedError(f"engine {name!r} is not ported yet: {item}")
-    factory.unported = item
-    register_engine(name, *aliases)(factory)
+_DIST_OPTIONS = (
+    EngineOption("mesh", None,
+                 "torch DeviceMesh with a 'model' dimension plus the data "
+                 "dimensions; None = the initialised default process group "
+                 "as 'data' (model=1), or else one rank on the params' "
+                 "device (NCCL on cuda, gloo on cpu)"),
+    EngineOption("data_axes", ("data",),
+                 "mesh dimensions the vertex partition spans -- ('pod', "
+                 "'data') reaches the multi-pod geometry from launch/mesh.py"),
+    EngineOption("seed", 0, "LDG partitioner seed"),
+    EngineOption("min_bucket", 32, "smallest static buffer capacity"),
+    EngineOption("donate", True,
+                 "update the ranks' H/S/C tensors in place through the "
+                 "gated commit, which keeps overflow retries bit-exact "
+                 "(disable for A/B equivalence checks against the copying "
+                 "path)"),
+    EngineOption("async_dispatch", False,
+                 "overlap host routing/packing of batch t+1 with device "
+                 "compute of batch t; the overflow flag is checked lazily "
+                 "and ``apply_batch`` reports the previous batch's affected "
+                 "ids (flush()/sync() drain exactly)"),
+    EngineOption("warm", True,
+                 "run the rung-0 cap schedule once at construction on a "
+                 "sentinel no-op batch"),
+)
 
 
-_unported("dist", "distributed",
-          item="ROADMAP.md Queue 1 item 4 (distributed path)")
-_unported("dist-rc", "dist-recompute",
-          item="ROADMAP.md Queue 1 item 4 (distributed path)")
+@register_engine("dist", "distributed",
+                 options=_DIST_OPTIONS + (
+                     EngineOption("mode", "ripple",
+                                  "'ripple' (incremental) or 'rc' "
+                                  "(pull-based recompute baseline)"),))
+class DistAdapter:
+    """Distributed RIPPLE over a mesh of ranks (paper §5) as a session
+    backend.
+
+    Every rank builds the same session and makes every call (see
+    ``core/dist_host.py``).  Entry migration scatters the host
+    ``InferenceState`` onto the ranks (re-partition + relabel, no
+    recomputation); ``sync()`` gathers their state back into the same host
+    arrays in original vertex-id order -- so ``swap_engine`` host <-> mesh
+    is exact.  The session graph stays authoritative on the host: the
+    engine mirrors every effective update into its relabeled copy during
+    routing.
+
+    Bounded-family workloads (ga-s, gp-m) have no distributed propagation:
+    the adapter *declares* the gap by setting ``bounded_fallback`` and
+    routing every call through a host ``RecomputeEngine`` -- exact
+    (RC-style re-aggregation), single-shard, never silently wrong.
+    """
+
+    def __init__(self, workload: Workload, params: list,
+                 graph: DynamicGraph, state: InferenceState, *,
+                 mesh=None, mode: str = "ripple",
+                 data_axes: tuple = ("data",), seed: int = 0,
+                 min_bucket: int = 32, donate: bool = True,
+                 async_dispatch: bool = False, warm: bool = True):
+        self._host = state
+        self.bounded_fallback = workload.agg.algebra == "bounded"
+        if self.bounded_fallback:
+            self._impl = None
+            self._fallback = RecomputeEngine(workload,
+                                             params_to_numpy(params),
+                                             graph, state)
+            return
+        if mesh is None:
+            mesh = default_mesh(next(params[0].parameters()).device)
+        self._impl = DistEngine(workload, params, graph, state, mesh,
+                                mode=mode, data_axes=tuple(data_axes),
+                                seed=seed, min_bucket=min_bucket,
+                                donate=donate, async_dispatch=async_dispatch,
+                                warm=warm)
+
+    def apply_batch(self, batch: UpdateBatch) -> UpdateResult:
+        t0 = time.perf_counter()
+        if self.bounded_fallback:
+            s = self._fallback.apply_batch(batch)
+            return UpdateResult(affected=np.asarray(s.final_affected),
+                                wall_seconds=time.perf_counter() - t0,
+                                affected_per_hop=s.affected_per_hop,
+                                messages_per_hop=s.messages_per_hop,
+                                numeric_ops=s.numeric_ops,
+                                rows_reaggregated=s.rows_reaggregated)
+        affected = self._impl.apply_batch(batch)
+        comm = self._impl.last_comm  # None until the first resolve (async)
+        return UpdateResult(
+            affected=affected,
+            wall_seconds=time.perf_counter() - t0,
+            messages_per_hop=[] if comm is None else [int(c) for c in comm],
+            shrink_events=self._impl.last_shrink_events,
+            rows_reaggregated=self._impl.last_rows_reaggregated,
+            dims_reaggregated=self._impl.last_dims_reaggregated,
+            recover_hits=self._impl.last_recover_hits)
+
+    def flush(self) -> None:
+        """Drain the async pipeline (no-op when synchronous)."""
+        if not self.bounded_fallback:
+            self._impl.flush()
+
+    def sync(self) -> InferenceState:
+        if self.bounded_fallback:
+            return self._fallback.state
+        return self._impl.gather_state(self._host)
+
+    @property
+    def state(self) -> InferenceState:
+        return self.sync()
+
+    def query(self, vertices: np.ndarray) -> np.ndarray:
+        """Backend-native read: final-layer rows (collective)."""
+        if self.bounded_fallback:
+            v = np.asarray(vertices, dtype=np.int64)
+            return self._fallback.state.H[-1][v]
+        return self._impl.query(vertices)
+
+    @property
+    def ckpt_shards(self) -> int:
+        """Data-shard count for the per-shard checkpoint layout."""
+        return 1 if self.bounded_fallback else self._impl.n_parts
+
+    @property
+    def ckpt_writer(self) -> bool:
+        """Whether this rank writes the session's shared files (the
+        mesh's first rank; the host fallback is one process)."""
+        return self.bounded_fallback or self._impl.comm.writer
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (no-op in the host fallback)."""
+        if not self.bounded_fallback:
+            self._impl.comm.barrier()
+
+    @property
+    def impl(self):
+        """The underlying engine (comm counters, CSR stats) for benches."""
+        return self._fallback if self.bounded_fallback else self._impl
+
+
+@register_engine("dist-rc", "dist-recompute", options=_DIST_OPTIONS)
+class DistRCAdapter(DistAdapter):
+    """Distributed pull-based recompute baseline (paper fig 12) -- ``dist``
+    with the mode pinned to 'rc'."""
+
+    def __init__(self, workload: Workload, params: list,
+                 graph: DynamicGraph, state: InferenceState, *,
+                 mesh=None, data_axes: tuple = ("data",), seed: int = 0,
+                 min_bucket: int = 32, donate: bool = True,
+                 async_dispatch: bool = False, warm: bool = True):
+        super().__init__(workload, params, graph, state, mesh=mesh,
+                         mode="rc", data_axes=data_axes, seed=seed,
+                         min_bucket=min_bucket, donate=donate,
+                         async_dispatch=async_dispatch, warm=warm)

@@ -186,16 +186,10 @@ def make_engine(name: str, workload: Workload, params: list,
     """Construct a registered engine from the normalized signature.
 
     ``options`` must be a subset of the engine's declared ``EngineOption``
-    set; omitted options are filled from their declared defaults.  An
-    engine registered with an ``unported`` note raises
-    ``NotImplementedError`` naming where it lands."""
+    set; omitted options are filled from their declared defaults."""
     key = name.lower()
     if key not in _REGISTRY:
         raise KeyError(
             f"unknown engine {name!r}; registered: {', '.join(engine_names())}")
-    unported = getattr(_REGISTRY[key], "unported", None)
-    if unported:
-        raise NotImplementedError(
-            f"engine {canonical_name(key)!r} is not ported yet: {unported}")
     return _REGISTRY[key](workload, params, graph, state,
                           **normalize_options(key, options))

@@ -16,7 +16,10 @@ per the hardware at hand::
 Everything runs on ``SessionConfig.device`` (``"cuda"`` unless the caller
 passes ``"cpu"``); engines that declare a ``device`` option get it (device,
 full, vertexwise), and the host engines (ripple, rc) work in NumPy on the
-state that the full pass bootstrapped there.
+state that the full pass bootstrapped there.  The distributed engines
+(dist, dist-rc) run on their mesh's ranks: every rank builds the same
+session and makes every call, and the mesh's first rank writes the
+checkpoints and the journal.
 Engine selection always goes through ``repro_torch.api.registry``.
 Snapshots and the update journal keep the reference's formats, so either
 package restores and replays what the other wrote.
@@ -148,6 +151,10 @@ class InferenceSession:
             # == step so future checkpoints' coverage claim stays truthful
             # (restore(replay=True) recovers that history)
             self.step = self.journal.next_id
+        if self.journal:
+            # over several ranks: every rank reads the journal's length
+            # before the first (the writer) can append to it
+            self._barrier()
 
     def _make_engine(self, name: str, options: dict) -> Engine:
         options = dict(options)
@@ -268,7 +275,7 @@ class InferenceSession:
         point shared by ``ingest`` and the serving layer's worker.  No
         batching policy and no flush -- a pipelined engine may still hold
         this batch in flight when the call returns."""
-        if self.journal:
+        if self.journal and self._writer():
             self.journal.append(batch)
         res = self.engine.apply_batch(batch)
         self.step += 1
@@ -335,12 +342,31 @@ class InferenceSession:
             tree["eps"] = st.eps
         return tree
 
+    def _writer(self) -> bool:
+        """Whether this process writes the session's shared files: always,
+        but in a session over several ranks only the mesh's first rank."""
+        return getattr(self.engine, "ckpt_writer", True)
+
+    def _barrier(self) -> None:
+        barrier = getattr(self.engine, "barrier", None)
+        if barrier is not None:
+            barrier()
+
     def checkpoint(self) -> str:
-        """Durably snapshot state + graph at the current step; returns the
-        snapshot directory."""
+        """Durably snapshot state + graph at the current step, one file per
+        data shard of the engine (``ckpt_shards``); returns the snapshot
+        directory.  In a session over several ranks every rank gathers the
+        state, the first writes it, and all wait for the write."""
         if not self._ckpt:
             raise RuntimeError("session built without ckpt_dir")
-        return self._ckpt.save(self._ckpt_tree(), self.step)
+        tree = self._ckpt_tree()
+        shards = getattr(self.engine, "ckpt_shards", 1)
+        if self._writer():
+            path = self._ckpt.save(tree, self.step, n_shards=shards)
+        else:
+            path = os.path.join(self.ckpt_dir, f"step_{self.step:08d}")
+        self._barrier()
+        return path
 
     def restore(self, step: int | None = None, *, replay: bool = False) -> int:
         """Restore the latest (or given) committed snapshot; returns the
@@ -349,7 +375,8 @@ class InferenceSession:
         A snapshot at step ``s`` holds the state after journal entries
         ``[0, s)``; with ``replay=True`` the entries ``>= s`` are applied
         again.  The journal is then cut to where the session stands, and
-        newer snapshots (a discarded future) are deleted.
+        newer snapshots (a discarded future) are deleted.  Every rank of a
+        distributed session reads the snapshot; the first cuts and deletes.
         """
         if not self._ckpt:
             raise RuntimeError("session built without ckpt_dir")
@@ -375,7 +402,9 @@ class InferenceSession:
             for _jid, batch in self.journal.replay(self.step):
                 self.engine.apply_batch(batch)
                 self.step += 1
-        if self.journal:
-            self.journal.truncate(self.step)
-        self._ckpt.prune_after(self.step)
+        if self._writer():
+            if self.journal:
+                self.journal.truncate(self.step)
+            self._ckpt.prune_after(self.step)
+        self._barrier()
         return int(got)

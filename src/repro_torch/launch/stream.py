@@ -9,18 +9,42 @@ registry.  Runs on the card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.stream --engine device \
         --workload gc-s --n 2000 --updates 3000 --batch-size 100
 
-``--engine`` takes ripple, rc, vertexwise, device and full (dist and
-dist-rc are not ported yet); ``--workload`` takes the five invertible
-workloads, the monotonic ``gs-max`` / ``gc-min`` and the bounded ``ga-s`` /
-``gp-m``; ``--tolerance`` (bounded workloads on ripple and device) turns on
-the certified approximate mode.
+``--engine`` takes ripple, rc, vertexwise, device, full, dist and dist-rc;
+``--workload`` takes the five invertible workloads, the monotonic
+``gs-max`` / ``gc-min`` and the bounded ``ga-s`` / ``gp-m``;
+``--tolerance`` (bounded workloads on ripple and device) turns on the
+certified approximate mode.
+
+The distributed engines run on one rank unless launched by ``torchrun``,
+which starts one process per card; each joins the environment's process
+group (NCCL on ``cuda``, gloo on ``cpu``) and the vertex partition spans
+all ranks (``data`` = world size, ``model`` = 1)::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.stream --engine dist \
+        --workload gc-s --n 169343 --m 1166243 --updates 3000
 """
 from __future__ import annotations
 
 import argparse
+import os
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.api import InferenceSession, SessionConfig, engine_names
 from repro_torch.core.workloads import WORKLOAD_NAMES
+
+
+def join_ranks(device: str) -> bool:
+    """Under ``torchrun`` (``RANK`` in the environment): one card per
+    rank, and the environment's process group.  Returns whether this
+    process reports (rank 0, or no launcher)."""
+    if "RANK" in os.environ and not dist.is_initialized():
+        if torch.device(device).type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(
+            "nccl" if torch.device(device).type == "cuda" else "gloo")
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def build(args) -> InferenceSession:
@@ -59,10 +83,13 @@ def main(argv=None):
                     help="torch device; 'cuda' fails when no card is present")
     args = ap.parse_args(argv)
 
+    reports = join_ranks(args.device)
     session = build(args)
     stream = session.make_stream(args.updates, seed=1)
     report = session.ingest(stream, batch_size=args.batch_size,
                             keep_results=bool(args.tolerance))
+    if not reports:
+        return
     print(f"engine={session.engine_name} workload={args.workload} "
           f"device={session.device} updates={report.n_updates} "
           f"throughput={report.throughput:.1f} up/s "

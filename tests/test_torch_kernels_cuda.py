@@ -8,7 +8,8 @@ hub row, bit-equal reruns, and its partition kernels equal to the plain
 partition; flash_attention atol 1e-5 / rtol 1e-4 in fp32
 and 2e-2 in bf16, also at phi4-mini's prefill shape and at ragged
 sequence lengths, on both of its routes (the wgmma kernel bit-equal
-across launches).  Imports no JAX, so it runs where only PyTorch is
+across launches); and a small ``dist`` session at world size 1 over NCCL
+against the full pass.  Imports no JAX, so it runs where only PyTorch is
 installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -660,3 +661,32 @@ def test_flash_attention_mma_route_on_card(cuda, dtype, Dh):
     assert flash_attention.launches_by_route == {
         "wgmma": before["wgmma"], "mma": before["mma"] + 1}
     torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,engine", [("gc-s", "dist"), ("gs-max", "dist"),
+                                         ("gi-s", "dist-rc")])
+def test_dist_session_world_size_1_on_card(cuda, name, engine):
+    """A small ``dist`` session at world size 1 over NCCL (the mesh of a
+    one-rank group on the card): exact against the full pass, which
+    bootstraps it through segment_mm."""
+    import torch.distributed as dist
+    from repro_torch.api import InferenceSession, SessionConfig
+    from repro_torch.core.full import full_inference
+
+    s = InferenceSession.build(SessionConfig(
+        workload=name, engine=engine, graph="powerlaw", n=2000, m=8000,
+        n_layers=2, d_in=32, d_hidden=32, n_classes=8, device="cuda"))
+    eng = s.engine.impl
+    assert eng.device.type == "cuda" and dist.get_backend() == "nccl"
+    assert (eng.n_parts, eng.M) == (1, 1)
+    s.ingest(s.make_stream(300, seed=1), batch_size=100)
+    st = s.sync()
+    H, _ = full_inference(s.workload, s.params,
+                          torch.as_tensor(st.H[0], device=cuda),
+                          *s.graph.coo(), s.graph.in_degree)
+    for l in range(1, len(H)):
+        torch.testing.assert_close(torch.as_tensor(st.H[l], device=cuda),
+                                   H[l], atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(torch.as_tensor(s.query(), device=cuda),
+                               H[-1], atol=2e-3, rtol=2e-3)

@@ -122,7 +122,8 @@ def test_registry_surface_matches_reference(tmp_path):
     with pytest.raises(TypeError, match="does not accept"):
         make_engine("full", wl, [], None, None, mesh=object())
     for name in ("dist", "dist-rc"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        assert set(engine_options(name)) == set(ref_engine_options(name))
+        with pytest.raises(TypeError, match="does not accept"):
             make_engine(name, wl, [], None, None, tolerance=0.0)
     s = InferenceSession.build(SessionConfig(
         ckpt_dir=str(tmp_path), n=40, m=160, d_in=4, d_hidden=4,
