@@ -11,7 +11,10 @@ both (embedding_bag also against F.embedding_bag, segment_mm against
 torch.sparse.mm over the same CSR at d = 128 and 40, flash_attention
 against F.scaled_dot_product_attention: library yardsticks, the backend
 SDPA took printed); flash_attention is also timed at phi4-mini's prefill
-shape in bf16 (its wgmma route) and fp32 (its mma route); the hop
+shape in bf16 (its wgmma route) and fp32 (its mma route) and at
+olmoe-1b-7b's (16 heads over 16 kv heads of 128, bf16), embedding_bag at
+DLRM-RM2's largest table (10,000,128 rows x 64, 262,144 one-lane bags,
+fp32); the hop
 kernels in turns with the designs their resident routes replaced
 (``prev_ms``: extremum_apply's K-chunked route, delta_apply's and
 mlp_apply's tiled route); every row names the route it took, which must
@@ -112,12 +115,43 @@ stages them through the host, so its times are not NCCL's) on a (data 2,
 model 2) mesh: gc-s on ``dist`` and ``dist-rc`` for 10 batches each,
 exact on every rank, and ``dist-rc`` must ship more than 3x the slots
 (``dist_ranks`` line).
+Phase 7 serves the rest of what the reference serves.  (a)
+olmoe-1b-7b at its published width and depth (16 layers, d_model 2048,
+16 heads of 128, 64 experts top-8 of ff 1024, vocab 50304; 6.92 B
+parameters in bf16, random from a seed) and (b) deepseek-v3-671b at its
+published width (MLA, 128 heads, 256 experts top-8 + 1 shared, vocab
+129280) with its 61 layers cut to 3 dense + 1 MoE (+ the MTP module;
+15.8 B parameters) take phase 4's traffic (4 prompts of 2048, 32 greedy
+tokens, a warm-up then a timed request): olmoe's prefill must launch
+flash_attention 16 times, all wgmma, deepseek-v3's (MLA: the plain
+chunked route) never, and no other kernel.  Each prints prefill and
+decode ms, peak GB, the profiled busy share, every MoE layer's dropped
+assignments and the MoE layers' share of the prefill's device time.
+Checks: in bf16 the prefill logits with the kernel against plain
+attention (olmoe) and decode step 4 against a re-prefill at the capacity
+factor E / K (no drops; deepseek-v3 on the first 256 prompt tokens), both
+within 5e-2 with the second run taking the first's expert choices (a
+near-tie that rounding flips sends a token elsewhere: each line also
+gives the comparison on the run's own choices and how many assignments
+moved); in fp32 (olmoe whole, 27.7 GB; deepseek-v3 at 1 dense + 1 MoE
+layer, 55.8 GB, batch 1, prompt 512) kernel against plain within 1e-5,
+the last MoE layer's moe_ffn against the one-hot moe_ffn_ref within 1e-5
+with the same dropped set, and decode against a re-prefill measured;
+deepseek-v3's mtp_head once at full width (shape, finite).  (c)
+DLRM-RM2 at its published size (26 tables, 49,888,768 rows x 64 fp32)
+serves serve_p99 (batch 512), serve_bulk (262,144) and retrieval_cand
+(1 query x 1,000,000 candidates): 26 embedding_bag launches a forward and
+nothing else, outputs (and losses) within relative L2 1e-5 of the same
+functions with embedding_bag_ref; ms, items/s and peak GB.  Each model
+is freed before the next.
+
 Phase 1 prints ptxas's registers and spills for every kernel
 instantiation; a spill in a hop kernel fails the run.  Any fault ends the
 run with a traceback and a non-zero exit; nothing is caught.  Without a
-CUDA card, or without the repository beside this file, it exits non-zero before printing any result.  Output ends with the card
-line (nvidia-smi's name and power limit), the kernels JSON line and the
-device JSON line.
+CUDA card, or without the repository beside this file, it exits non-zero before printing any result.  Output ends with the run's
+seconds, the card line (nvidia-smi's name and power limit), the kernels
+JSON line (each kernel's launches with flash_attention's and
+embedding_bag's by path) and the device JSON line.
 
 Precision: TF32 is off for matmuls and cuDNN, so the SAGE self term, the
 bootstrap, the oracle and the LM's fp32 checks run in full fp32, as the
@@ -125,7 +159,10 @@ bootstrap, the oracle and the LM's fp32 checks run in full fp32, as the
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
+import gc
 import json
 import os
 import random
@@ -167,6 +204,8 @@ FLASH_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4),  # tests/test_kernels.py
 # phi4-mini's prefill attention: batch 4, prompt 2048, 24 query heads over
 # 8 kv heads of 128
 PREFILL = dict(B=4, S=2048, H=24, Hkv=8, Dh=128)
+# olmoe-1b-7b's (phase 7): 16 query heads over 16 kv heads of 128 (MHA)
+OLMOE_PREFILL = dict(B=4, S=2048, H=16, Hkv=16, Dh=128)
 LM = dict(arch="phi4-mini-3.8b", batch=4, prompt=2048, tokens=32,
           checked_steps=4)
 # relative L2 bars of the LM's logits, kernel against plain attention and
@@ -183,6 +222,30 @@ SERVE = dict(tenants=4, max_batch=100, chunk=10, query_every=2,
              query_vertices=8, open_updates=1000, unloaded_queries=2000)
 # phase 5: recovery sessions snapshot every 10 of their 20 batches of 100
 CKPT_EVERY, N_CKPT_BATCHES = 10, 20
+# phase 7: the MoE / MLA language models, served as phi4-mini is in phase
+# 4 (LM's batch, prompt and tokens).  deepseek-v3's 61 layers are cut to
+# its 3 dense layers + 1 MoE layer (+ the MTP module): 31.6 GB in bf16.
+# Their fp32 checks: olmoe whole (27.7 GB); deepseek-v3 at 1 dense + 1 MoE
+# layer without the MTP module (55.8 GB), batch 1, prompt 512.  The decode
+# check runs at the capacity that drops nothing (C = S), whose expert
+# buffer holds E x B x S rows: deepseek-v3's (E 256) takes the first 256
+# tokens of each prompt (30 GB a buffer at 2048).
+MOE_LMS = {
+    "olmoe-1b-7b": dict(cut={}, fp32=dict(cut={}, batch=4, prompt=2048),
+                        decode_prompt=2048),
+    "deepseek-v3-671b": dict(
+        cut={"n_layers": 4},
+        fp32=dict(cut={"n_layers": 2, "first_k_dense": 1, "mtp_depth": 0},
+                  batch=1, prompt=512),
+        decode_prompt=256)}
+# phase 7: DLRM-RM2's serving cells (src/repro/configs/dlrm_rm2.py) and its
+# largest table, the bag shape phase 2 times
+DLRM = dict(serve_p99=512, serve_bulk=262_144, candidates=1_000_000)
+DLRM_BAG = dict(V=10_000_128, B=262_144, hot=1, d=64)
+# relative L2 of the DLRM outputs with the kernel against the same function
+# with embedding_bag_ref: fp32 sums of one row each, so only the MLPs'
+# summation order is left
+DLRM_BAR = 1e-5
 
 
 def log(*parts) -> None:
@@ -846,6 +909,8 @@ def phase_flash() -> list[dict]:
                             P["Dh"], torch.bfloat16, timed=True))
     rows.append(check_flash(len(rows), P["B"], P["S"], P["H"], P["Hkv"], 64,
                             torch.bfloat16, timed=True))
+    rows.append(check_flash(len(rows), *OLMOE_PREFILL.values(),
+                            torch.bfloat16, timed=True))
     for row in rows:
         log("kernel_check", json.dumps(row))
     main = next(r for r in rows if "ms" in r and r["route"] == "wgmma")
@@ -887,6 +952,9 @@ def phase_kernels() -> list[dict]:
         for hot in (64, 4096, 262144):
             rows.append(check_embedding_bag(len(rows), ARXIV["n"], B, hot,
                                             128, degs=degs, timed=True))
+    # phase 7's: DLRM-RM2's sum-mode bags over its largest table
+    rows.append(check_embedding_bag(len(rows), *DLRM_BAG.values(),
+                                    timed=True))
     for R in MAIN_R:
         for Dout in (128, 40):
             rows.append(check_delta(gen, R, 128, Dout, False, True,
@@ -1493,36 +1561,13 @@ def profile_lm(prefill, decode, params, prompts, n_steps: int) -> dict:
                 decode=dict(steps=n_steps, **window(run_decode)))
 
 
-def lm_checks(cfg, prefill, params, prompts, tokens, step_logits, *,
-              label: str) -> dict:
-    """The prefill logits with the kernel against the same model with the
-    plain attention, and the logits of decode step ``checked_steps``
-    against a re-prefill (kernel) of the prompt and the tokens generated
-    up to it; relative L2 of each."""
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.models.lm.steps import make_prefill_step
-    t = LM["checked_steps"]
-    kern, _ = prefill(params, prompts)
-    plain, _ = make_prefill_step(cfg, attention=flash_attention_ref)(
-        params, prompts)
-    again, _ = make_prefill_step(cfg)(
-        params, torch.cat([prompts, tokens[:, :t]], dim=1))
-    for name, x in (("kernel", kern), ("plain", plain), ("again", again)):
-        if not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"{label}: {name} prefill logits are not "
-                                 f"finite")
-    return dict(kernel_vs_plain=rel_l2(kern, plain),
-                decode_vs_reprefill=rel_l2(step_logits[t - 1],
-                                           again[:, -1]),
-                reprefill_len=prompts.shape[1] + t)
-
-
 def run_lm(counters: dict) -> dict:
     """Phase 4: phi4-mini-3.8b at full width and depth, served on the card
     (see the module's docstring).  Returns the flash_attention launches of
     the two requests and the numbers printed."""
     import dataclasses
     from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model
     from repro_torch.models.lm.model import init_params
     from repro_torch.models.lm.steps import make_decode_step, make_prefill_step
     cfg = get_arch(LM["arch"]).CONFIG
@@ -1534,12 +1579,7 @@ def run_lm(counters: dict) -> dict:
     params = init_params(gen, cfg, DEVICE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = [t for blk in (params, params["dense_blocks"],
-                            params["dense_blocks"]["attn"],
-                            params["dense_blocks"]["mlp"])
-              for t in blk.values() if isinstance(t, torch.Tensor)]
-    n_params = sum(t.numel() for t in leaves)
-    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    n_params, param_bytes = tree_size(params)
     prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen,
                             device=DEVICE)
     prefill = make_prefill_step(cfg, max_seq=S + T)
@@ -1572,8 +1612,7 @@ def run_lm(counters: dict) -> dict:
         raise AssertionError(f"lm: generated tokens {tuple(tokens.shape)} "
                              f"outside the vocabulary")
     profiled = profile_lm(prefill, decode, params, prompts, 4)
-    bf16 = lm_checks(cfg, prefill, params, prompts, tokens, step_logits,
-                     label="bf16")
+    bf16 = lm_checks(model, cfg, params, prompts)
     sample = tokens[0, :8].tolist()
     del params, step_logits
     torch.cuda.empty_cache()
@@ -1581,16 +1620,11 @@ def run_lm(counters: dict) -> dict:
     # ---- fp32 at full width and depth --------------------------------------
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
-    t = LM["checked_steps"]
     params = init_params(torch.Generator(device=DEVICE).manual_seed(0),
                          cfg32, DEVICE)
-    prefill32 = make_prefill_step(cfg32, max_seq=S + t + 1)
-    toks32, logits32, _, _ = generate(prefill32, make_decode_step(cfg32),
-                                      params, prompts, t + 1)
-    fp32 = lm_checks(cfg32, prefill32, params, prompts, toks32, logits32,
-                     label="fp32")
+    fp32 = lm_checks(model, cfg32, params, prompts)
     peak_fp32 = torch.cuda.max_memory_allocated()
-    del params, logits32
+    del params
     torch.cuda.empty_cache()
     for dtype, checks in (("bfloat16", bf16), ("float32", fp32)):
         for key in ("kernel_vs_plain", "decode_vs_reprefill"):
@@ -2221,7 +2255,512 @@ def run_swap_round_trip(counters: dict, H_device: list) -> list:
             for l in range(1, L + 1)]
 
 
-def main() -> int:
+# ---- phase 7: the MoE / MLA language models and DLRM-RM2 --------------------
+def tree_size(tree) -> tuple[int, int]:
+    """(elements, bytes) of the tensors of a nested dict / list tree."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        sizes = [tree_size(t) for t in tree]
+        return sum(n for n, _ in sizes), sum(b for _, b in sizes)
+    return tree.numel(), tree.numel() * tree.element_size()
+
+
+def cut_config(cfg, cut: dict):
+    """``cfg`` with ``cut`` applied; ``first_k_dense`` goes to its MoE."""
+    over = dict(cut)
+    if "first_k_dense" in over:
+        over["moe"] = dataclasses.replace(
+            cfg.moe, first_k_dense=over.pop("first_k_dense"))
+    return dataclasses.replace(cfg, **over)
+
+
+def no_drop(cfg):
+    """``cfg`` at the capacity factor E / K, which makes the capacity S:
+    no assignment is dropped at any length, so a decode step and a
+    re-prefill compute one function (at the published 1.25 the prefill
+    drops assignments and decode, at S = 1, never does)."""
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+
+
+@contextlib.contextmanager
+def moe_probe(model, capture: int | None = None, replay=None):
+    """While open, every MoE layer's ``moe_ffn`` call of the model module
+    runs through a probe that records, per call: the routing it computed
+    (``own``) and the one it used (``route``), the dropped assignments (a
+    device count), device events around the routing and the dispatch, and
+    the layer input ``x`` of call number ``capture``.  With ``replay``,
+    call i uses ``replay(i, own)`` in place of its own routing.  The probe
+    computes the layer as ``moe_ffn`` does (``moe_route``, then
+    ``moe_ffn`` with that route)."""
+    calls = []
+    moe_ffn = model.moe_ffn
+
+    def probe(p, cfg, x, route=None):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        own = model.moe_route(p, cfg, x)
+        r = own if replay is None else replay(len(calls), own)
+        out = moe_ffn(p, cfg, x, route=r)
+        end.record()
+        calls.append(dict(dropped=(~r.keep).sum(), own=own, route=r,
+                          events=(start, end), p=p,
+                          x=x if capture == len(calls) else None))
+        return out
+
+    model.moe_ffn = probe
+    try:
+        yield calls
+    finally:
+        model.moe_ffn = moe_ffn
+
+
+def experts_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Assignments of ``a [..., K]`` to an expert outside the same token's
+    top-k set in ``b`` (the order within a set does not count)."""
+    import torch.nn.functional as F
+    E = int(max(a.max(), b.max())) + 1
+    return int((F.one_hot(a, E).sum(-2) - F.one_hot(b, E).sum(-2))
+               .clamp(min=0).sum())
+
+
+def routes_differ(a: list, b: list) -> int:
+    """Over two lists of routings (one per MoE layer): the assignments
+    whose expert is outside the other's top-k set, plus those kept in one
+    and dropped in the other."""
+    return sum(experts_differ(x.expert, y.expert)
+               + int((x.keep != y.keep).sum()) for x, y in zip(a, b))
+
+
+def reroute(model, own, expert):
+    """``own`` (a layer's routing) with its top-k experts replaced by
+    ``expert``: the gates renormalized from own's router probabilities at
+    those experts, the places and drops recomputed (``model.place``)."""
+    gate = own.probs.gather(-1, expert)
+    gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+    return model.place(own.probs, gate, expert, own.capacity)
+
+
+def decode_vs_reprefill(model, cfg, params, prompts) -> dict:
+    """The logits of decode step ``checked_steps`` against a re-prefill of
+    the prompt and the tokens generated up to it (relative L2).  ``fed``:
+    every position of the re-prefill takes the experts it got when it was
+    first computed (the prompt's in the prefill, each generated token's in
+    its decode step; the gates its own): a router near-tie that rounding
+    flips between two computations sends a token to another expert, a
+    different function, as a flipped greedy token would.  ``own``: the
+    re-prefill's own choice throughout, and ``routes_differ`` counts the
+    assignments that then go to another expert."""
+    from repro_torch.models.lm.steps import make_decode_step, make_prefill_step
+    t, S = LM["checked_steps"], prompts.shape[1]
+    decode = make_decode_step(cfg)
+    with moe_probe(model) as first:
+        logits, caches = make_prefill_step(cfg, max_seq=S + t + 1)(params,
+                                                                   prompts)
+    toks, steps = [logits[:, -1].argmax(-1)], []
+    for i in range(t):
+        with moe_probe(model) as step:
+            lg, caches = decode(params, caches, toks[-1], S + i)
+        toks.append(lg.argmax(-1))
+        steps.append(step)
+    seq = torch.cat([prompts, torch.stack(toks[:t], 1)], 1)
+
+    def replay(i, own):
+        return reroute(model, own, torch.cat(
+            [first[i]["route"].expert]
+            + [step[i]["route"].expert for step in steps], 1))
+
+    with moe_probe(model, replay=replay) as again_calls:
+        again, _ = make_prefill_step(cfg)(params, seq)
+    # a dense model routes nothing: its own re-prefill is the same one
+    own = make_prefill_step(cfg)(params, seq)[0] if first else again
+    for x in (lg, again, own):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{cfg.name}: decode or re-prefill logits "
+                                 f"are not finite")
+    return dict(prompt=S, fed=rel_l2(lg, again[:, -1]),
+                own=rel_l2(lg, own[:, -1]),
+                routes_differ=sum(experts_differ(c["own"].expert,
+                                                 c["route"].expert)
+                                  for c in again_calls))
+
+
+def kernel_vs_plain(model, cfg, params, prompts, capture=None):
+    """The prefill logits with the flash_attention kernel against the same
+    model with the plain attention (relative L2): ``fed``, the plain run
+    taking the kernel run's experts (see decode_vs_reprefill), and
+    ``own``, with its own, and ``routes_differ`` over every MoE layer.
+    Also returns the kernel run's probe calls (``capture`` as
+    moe_probe's)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.lm.steps import make_prefill_step
+    plain_step = make_prefill_step(cfg, attention=flash_attention_ref)
+    with moe_probe(model, capture=capture) as calls:
+        kern, _ = make_prefill_step(cfg)(params, prompts)
+    with moe_probe(model, replay=lambda i, own: reroute(
+            model, own, calls[i]["route"].expert)):
+        fed, _ = plain_step(params, prompts)
+    if not calls:             # a dense model: nothing routed, nothing fed
+        return dict(fed=rel_l2(kern, fed), own=rel_l2(kern, fed),
+                    routes_differ=0), calls
+    with moe_probe(model) as own_calls:
+        own, _ = plain_step(params, prompts)
+    return dict(fed=rel_l2(kern, fed), own=rel_l2(kern, own),
+                routes_differ=routes_differ([c["route"] for c in calls],
+                                            [c["route"] for c in own_calls])
+                ), calls
+
+
+def lm_checks(model, cfg, params, prompts) -> dict:
+    """Phase 4's checks of a dense model (no routing to feed): the prefill
+    logits with the kernel against the plain attention, and decode step
+    ``checked_steps`` against a re-prefill; relative L2 of each."""
+    kern, _ = kernel_vs_plain(model, cfg, params, prompts)
+    again = decode_vs_reprefill(model, cfg, params, prompts)
+    return dict(kernel_vs_plain=kern["own"], decode_vs_reprefill=again["own"],
+                reprefill_len=prompts.shape[1] + LM["checked_steps"])
+
+
+def check_moe_layer(model, cfg, call: dict) -> dict:
+    """One MoE layer at full width: ``moe_ffn`` (index dispatch) against
+    ``moe_ffn_ref`` (the reference's one-hot formulation) on the input the
+    model gave it: the dropped sets, y's relative L2 and the aux losses'
+    relative difference."""
+    p, x = call["p"], call["x"]
+    y, aux = model.moe_ffn(p, cfg, x)
+    y_ref, aux_ref, keep = model.moe_ffn_ref(p, cfg, x)
+    route = model.moe_route(p, cfg, x)
+    return dict(shape=list(x.shape), capacity=route.capacity,
+                dropped=int((~route.keep).sum()),
+                same_dropped_set=bool(torch.equal(route.keep, keep)),
+                rel_l2=rel_l2(y, y_ref),
+                aux_rel=abs(float(aux) - float(aux_ref)) / abs(float(aux_ref)))
+
+
+def run_moe_lm(counters: dict, arch: str) -> dict:
+    """Phase 7 (a)/(b): ``arch`` at published width (depth cut as
+    MOE_LMS says) serves LM's traffic on the card -- a warm-up request,
+    then the timed one, the launch counts set to 0 before the two and read
+    after: a GQA model launches flash_attention once a layer a prefill,
+    all on the wgmma route, an MLA model never (its prefill attention is
+    the plain chunked route), and no other kernel launches.  Then: the
+    device busy share (profile_lm), each MoE layer's dropped assignments
+    and the MoE layers' share of the prefill's device time (events around
+    each MoE call), the bf16 checks (kernel against plain attention where
+    the model has the kernel; decode against a re-prefill at the capacity
+    that drops nothing), ``mtp_head`` once where the model has it, and the
+    fp32 run of MOE_LMS (kernel against plain attention, one MoE layer
+    against moe_ffn_ref, and decode against a re-prefill, measured).
+    Every model is freed before the next."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model
+    from repro_torch.models.lm.steps import make_decode_step, make_prefill_step
+    full = get_arch(arch).CONFIG
+    spec = MOE_LMS[arch]
+    cut = spec["cut"]
+    cfg = cut_config(full, cut)
+    n_dense, n_moe = model._layer_split(cfg)
+    B, S, T = LM["batch"], LM["prompt"], LM["tokens"]
+    mla = cfg.attention == "mla"
+    per_prefill = 0 if mla else cfg.n_layers
+    gc.collect()          # earlier phases' sessions may sit in cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init_params(gen, cfg, DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params, param_bytes = tree_size(params)
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                            device=DEVICE)
+    prefill = make_prefill_step(cfg, max_seq=S + T)
+    decode = make_decode_step(cfg)
+
+    # ---- the main path: a warm-up request, then the timed one ------------
+    flash = counters["flash_attention"]
+    reset_counts(counters)
+    generate(prefill, decode, params, prompts, T)
+    first = flash.launches
+    tokens, _, prefill_ms, step_ms = generate(prefill, decode, params,
+                                              prompts, T)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    routes = dict(flash.launches_by_route)
+    if (first, launches["flash_attention"]) != (per_prefill, 2 * per_prefill) \
+            or sum(launches.values()) != launches["flash_attention"] \
+            or routes["wgmma"] != launches["flash_attention"]:
+        raise AssertionError(f"{arch}: {first} flash_attention launches in "
+                             f"the first request, {launches} (by route "
+                             f"{routes}) after the second; each prefill "
+                             f"must launch it {per_prefill} times, all "
+                             f"wgmma, and no other kernel")
+    peak = torch.cuda.max_memory_allocated()
+    if tokens.shape != (B, T) or not bool(((tokens >= 0)
+                                           & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"{arch}: generated tokens outside the "
+                             f"vocabulary")
+    profiled = profile_lm(prefill, decode, params, prompts, 4)
+
+    # ---- drops and the MoE layers' device time, one probed prefill -------
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with moe_probe(model) as calls:
+        start.record()
+        prefill(params, prompts)
+        end.record()
+    torch.cuda.synchronize()
+    if len(calls) != n_moe:
+        raise AssertionError(f"{arch}: {len(calls)} MoE calls in a prefill "
+                             f"of {n_moe} MoE layers")
+    moe_ms = sum(c["events"][0].elapsed_time(c["events"][1]) for c in calls)
+    probed_ms = start.elapsed_time(end)
+    dropped = [int(c["dropped"]) for c in calls]
+    del calls
+
+    # ---- bf16 checks ------------------------------------------------------
+    bf16 = {}
+    if not mla:
+        bf16["kernel_vs_plain"], _ = kernel_vs_plain(model, cfg, params,
+                                                     prompts)
+    bf16["decode_vs_reprefill_no_drop"] = decode_vs_reprefill(
+        model, no_drop(cfg), params, prompts[:, :spec["decode_prompt"]])
+    mtp = None
+    if cfg.mtp_depth:
+        hidden, _, _ = model.forward(params, cfg, prompts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.mtp_head(params, cfg, hidden, prompts)
+        torch.cuda.synchronize()
+        mtp = dict(shape=list(logits.shape),
+                   ms=(time.perf_counter() - t0) * 1e3,
+                   finite=bool(torch.isfinite(logits).all()))
+        del hidden, logits
+    sample = tokens[0, :8].tolist()
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- fp32 checks --------------------------------------------------------
+    f = spec["fp32"]
+    cfg32 = dataclasses.replace(cut_config(full, f["cut"]),
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    params = model.init_params(gen, cfg32, DEVICE)
+    n32, bytes32 = tree_size(params)
+    prompts32 = torch.randint(0, cfg32.vocab, (f["batch"], f["prompt"]),
+                              generator=gen, device=DEVICE)
+    fp32 = dict(layers=cfg32.n_layers, batch=f["batch"], prompt=f["prompt"],
+                params=n32, param_bytes=bytes32)
+    last = model._layer_split(cfg32)[1] - 1     # the last MoE layer's input
+    if mla:
+        with moe_probe(model, capture=last) as calls:
+            make_prefill_step(cfg32)(params, prompts32)
+    else:
+        fp32["kernel_vs_plain"], calls = kernel_vs_plain(
+            model, cfg32, params, prompts32, capture=last)
+    fp32["moe_layer"] = check_moe_layer(model, cfg32, calls[last])
+    del calls
+    fp32["decode_vs_reprefill_no_drop"] = decode_vs_reprefill(
+        model, no_drop(cfg32), params, prompts32[:, :spec["decode_prompt"]])
+    fp32["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+
+    # held: the bars of LM_BARS on the experts fed, kernel against plain
+    # in both dtypes and decode against a re-prefill on the served (bf16)
+    # model; fp32's decode against a re-prefill is measured, not held (its
+    # noise floor sits at the 1e-5 bar: PERF.md, PR 23)
+    failed = [f"{dtype} {key} relative L2 {checks[key]['fed']} > "
+              f"{LM_BARS[dtype]}"
+              for dtype, checks, key in (
+                  ("bfloat16", bf16, "kernel_vs_plain"),
+                  ("bfloat16", bf16, "decode_vs_reprefill_no_drop"),
+                  ("float32", fp32, "kernel_vs_plain"))
+              if key in checks and checks[key]["fed"] > LM_BARS[dtype]]
+    m = fp32["moe_layer"]
+    if not m["same_dropped_set"] or m["rel_l2"] > LM_BARS["float32"] \
+            or m["aux_rel"] > 1e-6:
+        failed.append(f"fp32 moe_ffn against moe_ffn_ref: {m}")
+    if mtp is not None and (mtp["shape"] != [B, S - 1, cfg.vocab]
+                            or not mtp["finite"]):
+        failed.append(f"mtp_head gave {mtp}")
+
+    decode_ms = statistics.mean(step_ms)
+    result = dict(
+        arch=arch, reduced={k: f"{getattr(full, k)} -> {v}"
+                            for k, v in cut.items()},
+        layers=cfg.n_layers, dense_layers=n_dense, moe_layers=n_moe,
+        d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        attention=cfg.attention, experts=cfg.moe.n_experts,
+        top_k=cfg.moe.top_k, d_ff_expert=cfg.moe.d_ff_expert,
+        shared=cfg.moe.n_shared, vocab=cfg.vocab, dtype=cfg.param_dtype,
+        batch=B, prompt=S, tokens=T, capacity=model.capacity(cfg, S),
+        params=n_params, param_bytes=param_bytes, init_s=init_s,
+        launches=launches, flash_routes=routes, prefill_ms=prefill_ms,
+        prefill_tok_per_s=B * S / (prefill_ms * 1e-3),
+        decode_ms_per_token=decode_ms, decode_ms=step_ms,
+        generated_tok_per_s=B * (T - 1) / (sum(step_ms) * 1e-3),
+        peak_gb=peak / 1e9, resident_gb_before=resident / 1e9,
+        profiled=profiled, dropped_per_layer=dropped,
+        dropped_share=sum(dropped) / (n_moe * B * S * cfg.moe.top_k),
+        moe_device_ms=moe_ms, probed_prefill_device_ms=probed_ms,
+        moe_share=moe_ms / probed_ms, bf16=bf16, fp32=fp32, mtp=mtp,
+        sample=sample)
+    log(f"{arch}: {n_params} parameters ({param_bytes / 1e9:.3f} GB), peak "
+        f"{peak / 1e9:.3f} GB; prefill {prefill_ms:.3f} ms; decode "
+        f"{decode_ms:.3f} ms/token; device busy: prefill "
+        f"{profiled['prefill']['device_busy_share']:.3f}, decode "
+        f"{profiled['decode']['device_busy_share']:.3f}; MoE layers "
+        f"{result['moe_share']:.3f} of the prefill's device time; dropped "
+        f"assignments per MoE layer {dropped} (capacity "
+        f"{result['capacity']})")
+    log(f"{arch} relative L2 (fed: the second run takes the first's experts; "
+        f"own: its own routing): bf16 {bf16}; fp32 "
+        f"{ {k: v for k, v in fp32.items() if k != 'moe_layer'} }; MoE "
+        f"layer {fp32['moe_layer']}; decode checks at capacity factor E/K "
+        f"(no drops)")
+    log("moe_lm_session", json.dumps(result))
+    if failed:
+        raise AssertionError(f"{arch}: " + "; ".join(failed))
+    return result
+
+
+def run_dlrm(counters: dict) -> dict:
+    """Phase 7 (c): DLRM-RM2 at its published size (26 tables,
+    rm2_vocab_sizes(26): 49,888,768 rows x 64 fp32) serves its three cells
+    on the card with indices and candidates from a seeded generator:
+    serve_p99 (batch 512), serve_bulk (262,144) and retrieval_cand (1 query
+    x 1,000,000 candidates).  For each, the launch counts are set to 0
+    just before a forward and read after it: embedding_bag exactly 26 and
+    no other kernel; the output (and the loss of the serving cells) is
+    held to the same function with embedding_bag_ref at relative L2
+    DLRM_BAR; then it is timed (host clock around synchronisations, the
+    launches counted again)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.dlrm_rm2 import dlrm_model_flops
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.models.recsys.dlrm import (dlrm_forward, dlrm_loss,
+                                                init_dlrm, retrieval_scores)
+    cfg = get_arch("dlrm-rm2").CONFIG
+    if max(cfg.vocab_sizes) != DLRM_BAG["V"] \
+            or cfg.embed_dim != DLRM_BAG["d"]:
+        raise AssertionError("DLRM_BAG is not RM2's largest table")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_dlrm(gen, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params, param_bytes = tree_size(params)
+    F_ = cfg.n_sparse
+
+    def sparse(B):
+        return torch.stack([torch.randint(0, v, (B, cfg.multi_hot),
+                                          generator=gen, device=DEVICE)
+                            for v in cfg.vocab_sizes], 1).to(torch.int32)
+
+    launched = []
+
+    def counted(fn, forwards: int = 1):
+        """``fn`` (``forwards`` forwards) between a reset and a read of the
+        launch counts: embedding_bag 26 times a forward, nothing else."""
+        reset_counts(counters)
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items() if c.launches}
+        if launches != {"embedding_bag": F_ * forwards}:
+            raise AssertionError(f"dlrm: {forwards} forwards launched "
+                                 f"{launches}, expected embedding_bag "
+                                 f"{F_ * forwards} times and nothing else")
+        launched.append(F_ * forwards)
+        return out
+
+    def timed(fn, iters: int) -> float:
+        """Host ms of one forward (median), its launches counted too."""
+        return counted(lambda: host_ms(fn, iters=iters, warmup=1),
+                       forwards=1 + iters)
+
+    cells = []
+    for name in ("serve_p99", "serve_bulk"):
+        B = DLRM[name]
+        dense = torch.randn((B, cfg.n_dense), generator=gen, device=DEVICE)
+        idx = sparse(B)
+        labels = torch.randint(0, 2, (B,), generator=gen,
+                               device=DEVICE).float()
+
+        def forward():
+            return dlrm_forward(params, cfg, dense, idx)
+
+        forward()                                      # warm-up
+        out = counted(forward)
+        plain = dlrm_forward(params, cfg, dense, idx, bag=embedding_bag_ref)
+        loss = counted(lambda: dlrm_loss(params, cfg, dense, idx, labels))
+        loss_plain = dlrm_loss(params, cfg, dense, idx, labels,
+                               bag=embedding_bag_ref)
+        iters = 25 if B <= 4096 else 5
+        ms = timed(forward, iters)
+        cells.append(dict(
+            cell=name, batch=B, ms=ms, items_per_s=B / (ms * 1e-3),
+            device_ms=device_ms(forward, iters=iters, warmup=1),
+            model_tflop_per_s=dlrm_model_flops(cfg, B, "serve")
+            / (ms * 1e-3) / 1e12,
+            rel_l2=rel_l2(out, plain),
+            loss=float(loss), loss_rel=abs(float(loss) - float(loss_plain))
+            / abs(float(loss_plain)),
+            finite=bool(torch.isfinite(out).all()), shape=list(out.shape)))
+        del dense, idx, labels, out, plain
+    q_dense = torch.randn((1, cfg.n_dense), generator=gen, device=DEVICE)
+    q_idx = sparse(1)
+    cand = torch.randn((DLRM["candidates"], cfg.embed_dim), generator=gen,
+                       device=DEVICE)
+
+    def retrieve():
+        return retrieval_scores(params, cfg, q_dense, q_idx, cand)
+
+    retrieve()
+    scores = counted(retrieve)
+    plain = retrieval_scores(params, cfg, q_dense, q_idx, cand,
+                             bag=embedding_bag_ref)
+    ms = timed(retrieve, 25)
+    cells.append(dict(
+        cell="retrieval_cand", batch=1, candidates=DLRM["candidates"], ms=ms,
+        items_per_s=DLRM["candidates"] / (ms * 1e-3),
+        device_ms=device_ms(retrieve), rel_l2=rel_l2(scores, plain),
+        finite=bool(torch.isfinite(scores).all()), shape=list(scores.shape)))
+    peak = torch.cuda.max_memory_allocated()
+    del params, cand, scores, plain
+    torch.cuda.empty_cache()
+    for c in cells:
+        want = [c["batch"]] if c["cell"] != "retrieval_cand" \
+            else [DLRM["candidates"]]
+        if c["shape"] != want or not c["finite"] or c["rel_l2"] > DLRM_BAR \
+                or c.get("loss_rel", 0.0) > DLRM_BAR:
+            raise AssertionError(f"dlrm {c['cell']}: {c}")
+    result = dict(arch="dlrm-rm2", tables=F_, rows=sum(cfg.vocab_sizes),
+                  embed_dim=cfg.embed_dim, params=n_params,
+                  param_bytes=param_bytes, init_s=init_s, peak_gb=peak / 1e9,
+                  cells=cells, embedding_bag_launches=sum(launched))
+    for c in cells:
+        log(f"dlrm-rm2 {c['cell']}: {c['ms']:.3f} ms ({c['items_per_s']:.0f} "
+            f"items/s), relative L2 against embedding_bag_ref "
+            f"{c['rel_l2']}")
+    log(f"dlrm-rm2: {n_params} parameters ({param_bytes / 1e9:.3f} GB), "
+        f"peak {peak / 1e9:.3f} GB")
+    log("dlrm_session", json.dumps(result))
+    return result
+
+
+def prepare() -> tuple[str, dict]:
+    """Phase 1: checks that a card and the port are there, turns TF32 off,
+    builds the kernels (printing ptxas's registers and spills) and returns
+    the card line and every kernel wrapper by name (the launch counters)."""
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2261,6 +2800,15 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    return card, {"delta_apply": delta_apply, "mlp_apply": mlp_apply,
+                  "extremum_apply": extremum_apply,
+                  "embedding_bag": embedding_bag, "segment_mm": segment_mm,
+                  "flash_attention": flash_attention}
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    card, counters = prepare()
 
     # ---- phase 2: kernels against their plain versions -------------------
     # the floor under every kernel time: a one-element add_, timed alike
@@ -2271,10 +2819,6 @@ def main() -> int:
     kernel_rows = phase_kernels()
 
     # ---- phase 3: the main paths, one session each -----------------------
-    counters = {"delta_apply": delta_apply, "mlp_apply": mlp_apply,
-                "extremum_apply": extremum_apply,
-                "embedding_bag": embedding_bag, "segment_mm": segment_mm,
-                "flash_attention": flash_attention}
     sessions = [run_session(wl, counters, kernel) for wl, kernel in (
         ("gc-s", "delta_apply"), ("gi-s", "mlp_apply"),
         ("gs-max", "extremum_apply"), ("gc-min", "extremum_apply"),
@@ -2296,9 +2840,18 @@ def main() -> int:
     gcs = next(s for s in sessions if s["workload"] == "gc-s")
     distributed = run_distributed(counters, card, gcs.pop("H_final"))
 
+    # ---- phase 7: MoE / MLA language models and DLRM-RM2 ------------------
+    moe_lms = [run_moe_lm(counters, arch) for arch in MOE_LMS]
+    dlrm = run_dlrm(counters)
+
     launches = {name: sum(s["launches"][name] for s in sessions)
                 for name in counters}
-    launches["flash_attention"] = lm["launches"]["flash_attention"]
+    flash_by_path = {lm["arch"]: lm["launches"]["flash_attention"]} | {
+        r["arch"]: r["launches"]["flash_attention"] for r in moe_lms}
+    bag_by_path = {"gp-m": launches["embedding_bag"],
+                   "dlrm-rm2": dlrm["embedding_bag_launches"]}
+    launches["flash_attention"] = sum(flash_by_path.values())
+    launches["embedding_bag"] = sum(bag_by_path.values())
     # segment_mm: the full engines' batches and every bootstrap counted
     launches["segment_mm"] = sum(
         s["launches"]["segment_mm"] + s["bootstrap_segment_mm_launches"]
@@ -2373,7 +2926,16 @@ def main() -> int:
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
         shape=f"B={B} hot={hot} d=128 kept={row['kept_lanes']}",
-        passed=True))
+        launches_by_path=bag_by_path, passed=True))
+    # and at DLRM-RM2's largest table, timed in phase 2
+    row = next(r for r in kernel_rows if r["kernel"] == "embedding_bag"
+               and r["V"] == DLRM_BAG["V"])
+    kernels[-1].update(
+        dlrm_shape="V={V} B={B} hot={hot} d={d} fp32".format(**DLRM_BAG),
+        ms_dlrm=row["ms"], plain_ms_dlrm=row["plain_ms"],
+        bound_ms_dlrm=row["bound_ms"], bound_by_dlrm=row["bound_by"],
+        library_ms_dlrm=row["library_ms"],
+        max_abs_err_dlrm=row["max_abs_err"])
     # segment_mm at the full pass's shape, timed in phase 2
     row, row40 = (next(r for r in kernel_rows if r["kernel"] == "segment_mm"
                        and r["n"] == ARXIV["n"] and r["d"] == d)
@@ -2410,11 +2972,25 @@ def main() -> int:
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
         library_backend=row["library_backend"],
-        kernel_route=row["route"], launches_by_route=lm["flash_routes"],
+        kernel_route=row["route"],
+        launches_by_route={r: lm["flash_routes"][r] + sum(
+            m["flash_routes"][r] for m in moe_lms) for r in lm["flash_routes"]},
+        launches_by_path=flash_by_path,
         shape="B={B} S={S} H={H} Hkv={Hkv} Dh={Dh} bf16 causal".format(
             **PREFILL),
         passed=True))
+    # and at olmoe-1b-7b's prefill shape (MHA), timed in phase 2
+    row = next(r for r in flash_rows if "ms" in r
+               and (r["B"], r["S"], r["H"], r["Hkv"], r["Dh"])
+               == tuple(OLMOE_PREFILL.values()))
+    kernels[-1].update(
+        olmoe_shape="B={B} S={S} H={H} Hkv={Hkv} Dh={Dh} bf16 causal"
+        .format(**OLMOE_PREFILL),
+        ms_olmoe=row["ms"], plain_ms_olmoe=row["plain_ms"],
+        bound_ms_olmoe=row["bound_ms"], library_ms_olmoe=row["library_ms"],
+        max_abs_err_olmoe=row["max_abs_err"])
     torch.cuda.synchronize()
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,9 +12,10 @@ with ``nvcc`` at first use.
                  finite-mask, product: S' = max|min(base, M);
                  h = act(finite(S')W + b)
     embedding_bag  sum-mode bag gather: out[b] = sum_h table[idx[b, h]]
-                 (PNA's first moment in the bounded device hop)
+                 (PNA's first moment in the bounded device hop; DLRM's
+                 sparse fields)
     segment_mm   weighted CSR SpMM: out[v] = sum_(u,v) w_uv x[u] (the full
                  pass's invertible aggregation)
     flash_attention  causal grouped-query attention with an online softmax
-                 (the LM prefill's attention)
+                 (a GQA or MHA LM prefill's attention)
 """

@@ -2,10 +2,14 @@
 config, the port of ``repro``'s ``launch/lm_serve.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.lm_serve --arch phi4-mini-3.8b --tokens 16
-    PYTHONPATH=src python -m repro_torch.launch.lm_serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.lm_serve --arch olmoe-1b-7b
+    PYTHONPATH=src python -m repro_torch.launch.lm_serve --device cpu \
+        --arch deepseek-v3-671b
 
-Runs on ``cuda`` unless ``--device`` says otherwise; prefill attention
-runs through the ``flash_attention`` kernel there.
+Every language model of the registry (dense GQA, MoE, MLA) serves its
+REDUCED config.  Runs on ``cuda`` unless ``--device`` says otherwise; a
+GQA model's prefill attention runs through the ``flash_attention`` kernel
+there, an MLA model's through the plain chunked route.
 """
 from __future__ import annotations
 

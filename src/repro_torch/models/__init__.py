@@ -1,3 +1,4 @@
-"""Model families of the port.  Only the dense-GQA language model
-(``models.lm``) is ported so far; the GNN and recsys models of ``repro``
-are still to come (ROADMAP.md, Queue 1)."""
+"""Model families of the port: the language models (``models.lm``: dense
+GQA, MoE, MLA), DLRM (``models.recsys``) and the GNN plumbing
+(``models.gnn.common``).  The GNN models themselves are still to come
+(ROADMAP.md, Queue 1)."""

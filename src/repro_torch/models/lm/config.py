@@ -3,10 +3,10 @@
 the same model in both packages.
 
 It describes dense GQA models (nemotron/phi4/qwen2), MoE (olmoe), and
-MLA + fine-grained MoE + MTP (deepseek-v3); the port runs the dense GQA
-ones (``model.py`` raises for MoE and MLA).  The sharding, remat, optimizer
-and scan fields are read by the reference's training and dry-run paths
-and kept here so a configuration moves across unchanged.
+MLA + fine-grained MoE + MTP (deepseek-v3); the port serves all of them.
+The sharding, remat, optimizer and scan fields are read by the
+reference's training and dry-run paths and kept here so a configuration
+moves across unchanged.
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ import numpy as np
 import torch
 
 from .config import LMConfig
-from .model import _check_dense
+from .model import param_shapes
 
 
 def _tensor(a) -> torch.Tensor:
@@ -20,37 +20,28 @@ def _tensor(a) -> torch.Tensor:
 def params_from_numpy(tree, cfg: LMConfig, device="cuda",
                       dtype: torch.dtype | None = None) -> dict:
     """The port's parameters from the reference's tree (nested dicts of
-    arrays: ``np.asarray`` of each JAX leaf, fp32 or bf16): the same keys
-    and shapes, each leaf a tensor of ``dtype`` (default
-    ``cfg.param_dtype``) on ``device``.  Raises on a tree that is not the
-    dense-GQA layout of ``cfg``."""
-    _check_dense(cfg)
+    arrays: ``np.asarray`` of each JAX leaf, fp32 or bf16), dense, MoE,
+    MLA and MTP alike: the same keys and shapes, each leaf a tensor on
+    ``device`` in its own dtype class -- the MoE router fp32, every other
+    leaf ``dtype`` (default ``cfg.param_dtype``).  Raises on a tree whose
+    keys or any leaf's shape are not ``cfg``'s."""
     dt = dtype or getattr(torch, cfg.param_dtype)
-    want = {"embed", "ln_f", "dense_blocks"} | (
-        set() if cfg.tie_embeddings else {"lm_head"})
-    if set(tree) != want:
-        raise ValueError(f"tree keys {sorted(tree)} are not the dense "
-                         f"layout's {sorted(want)}")
 
-    def conv(t, path):
-        if isinstance(t, dict):
-            return {k: conv(v, f"{path}/{k}") for k, v in t.items()}
+    def conv(t, want, path):
+        if isinstance(want, dict):
+            if not isinstance(t, dict) or set(t) != set(want):
+                got = sorted(t) if isinstance(t, dict) else type(t).__name__
+                raise ValueError(f"{path or 'the tree'} has keys {got}, "
+                                 f"expected {sorted(want)} for {cfg.name}")
+            return {k: conv(t[k], want[k], f"{path}/{k}") for k in want}
+        shape, _ = want
         out = _tensor(t)
         if not out.is_floating_point():
             raise TypeError(f"{path} is {out.dtype}, not a float array")
-        return out.to(device=device, dtype=dt)
-
-    params = conv(tree, "")
-    L, D = cfg.n_layers, cfg.d_model
-    blocks = params["dense_blocks"]
-    for path, t, shape in (
-            ("embed", params["embed"], (cfg.vocab, D)),
-            ("dense_blocks/ln1", blocks["ln1"], (L, D)),
-            ("dense_blocks/attn/w_q", blocks["attn"]["w_q"],
-             (L, D, cfg.n_heads, cfg.head_dim)),
-            ("dense_blocks/attn/w_k", blocks["attn"]["w_k"],
-             (L, D, cfg.n_kv_heads, cfg.head_dim))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{path} has shape {tuple(t.shape)}, expected "
+        if tuple(out.shape) != shape:
+            raise ValueError(f"{path} has shape {tuple(out.shape)}, expected "
                              f"{shape} for {cfg.name}")
-    return params
+        return out.to(device=device, dtype=torch.float32
+                      if path.endswith("/router") else dt)
+
+    return conv(tree, param_shapes(cfg), "")

@@ -1,27 +1,38 @@
-"""Dense-GQA transformer LM in PyTorch: the dense half of ``repro``'s
-``models/lm/model.py``, for inference.
+"""Transformer LM in PyTorch: ``repro``'s ``models/lm/model.py`` for
+inference -- GQA and MLA attention, dense and MoE FFNs, KV-cache decode
+and the multi-token-prediction head.
 
 Layouts are the reference's at every public function: activations
 ``[B, S, D]``, q/k/v ``[B, S, H, Dh]``, weights ``w_q [D, H, Dh]``,
 ``w_o [H, Dh, D]``, layer parameters stacked on a leading ``[L]`` axis
-under ``params["dense_blocks"]``, and KV caches ``{stack: (k [L, B, Smax,
-Hkv, Dh], v, pos)}``.  The layers run as a Python loop over the stack
-(the reference's ``lax.scan``); there is no remat, since nothing here is
-differentiated.
+under ``params["dense_blocks"]`` and ``params["moe_blocks"]`` (the first
+``moe.first_k_dense`` layers dense, the rest MoE), and KV caches
+``{stack: (k, v, pos)}``: GQA ``k``/``v [L, B, Smax, Hkv, Dh]``, MLA the
+latent ``c_kv [L, B, Smax, r]`` and the rotary key ``k_pe [L, B, Smax,
+dr]``.  The layers run as a Python loop over each stack (the reference's
+``lax.scan``); there is no remat, since nothing here is differentiated.
 
-Prefill attention runs through the hand-written ``flash_attention``
-kernel on a card (its plain version on the CPU); decode attends one query
-against the whole cache in plain PyTorch, as the reference does outside
-any kernel.  Decode writes the new k/v into the cache tensors in place
-(the reference returns updated copies), so a cache is not reused after a
-step.  The cache position is a Python int.
+Prefill attention: GQA runs through the hand-written ``flash_attention``
+kernel on a card (its plain version on the CPU).  MLA's q/k head dim
+(``dn + dr``, 192 at deepseek-v3) differs from its v head dim (128),
+which neither the TPU kernel nor ``flash_attention`` takes; the reference
+computes it outside any kernel, and so does the port, in
+:func:`chunked_attention`.  Decode attends the new queries against the
+whole cache in plain PyTorch, as the reference does: MLA in the absorbed
+form, in latent space.  Decode writes the new cache entries in place (the
+reference returns updated copies), so a cache is not reused after a step.
+The cache position is a Python int.
 
-MoE, MLA and multi-token prediction are not ported: they raise
-``NotImplementedError`` (ROADMAP.md Queue 1, item 5).
+MoE layers dispatch by index (:func:`moe_ffn`): each kept assignment's
+row is copied into its expert's slot of an ``[E, B*C, D]`` buffer, the
+experts run as batched matrix products, and each token gathers its
+experts' rows back.  :func:`moe_ffn_ref` is the reference's one-hot
+formulation, kept for the tests and the card's check.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -31,8 +42,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from .config import LMConfig
 
 Params = dict
-NOT_PORTED = "not ported yet (ROADMAP.md Queue 1, item 5)"
 NEG = -1e30
+DRAW_CHUNK = 1 << 26   # elements drawn in fp32 at a time by init_params
 
 
 def _dtype(cfg: LMConfig) -> torch.dtype:
@@ -43,17 +54,19 @@ def _cdtype(cfg: LMConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def _check_dense(cfg: LMConfig) -> None:
-    if cfg.attention != "gqa":
-        raise NotImplementedError(f"{cfg.attention} attention is {NOT_PORTED}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"MoE layers are {NOT_PORTED}")
-    if cfg.mtp_depth:
-        raise NotImplementedError(f"multi-token prediction is {NOT_PORTED}")
+def _check_dtypes(cfg: LMConfig) -> None:
     if cfg.param_dtype != cfg.compute_dtype:
         raise ValueError(f"param_dtype {cfg.param_dtype} and compute_dtype "
                          f"{cfg.compute_dtype} differ; the port runs one "
                          f"dtype throughout")
+
+
+def _layer_split(cfg: LMConfig) -> tuple[int, int]:
+    """(# dense layers, # MoE layers)."""
+    if cfg.moe is None:
+        return cfg.n_layers, 0
+    k = cfg.moe.first_k_dense
+    return k, cfg.n_layers - k
 
 
 # ---------------------------------------------------------------------------
@@ -95,46 +108,110 @@ def _act(name: str, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # parameter init
 # ---------------------------------------------------------------------------
+def _tree(cfg: LMConfig, leaf) -> Params:
+    """The reference's parameter tree (``init_params``), each leaf made by
+    ``leaf(shape, init, dtype)``: ``init`` is the scale of an N(0, 1)
+    matrix, or ``"ones"`` / ``"zeros"``.  A matrix's scale is the
+    reference's: 1/sqrt of its first per-layer dimension unless given
+    (so an expert stack ``[E, D, F]`` is drawn at 1/sqrt(E)).  The MoE
+    router is fp32 whatever ``cfg.param_dtype`` is."""
+    dt = _dtype(cfg)
+    D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def mat(lead, *shape, scale=None, dtype=dt):
+        return leaf(lead + shape, scale or shape[0] ** -0.5, dtype)
+
+    def ones(lead, d):
+        return leaf(lead + (d,), "ones", dt)
+
+    def attn(lead):
+        if cfg.attention == "mla":
+            m = cfg.mla
+            return {
+                "w_dq": mat(lead, D, m.q_lora_rank),
+                "q_norm": ones(lead, m.q_lora_rank),
+                "w_uq": mat(lead, m.q_lora_rank, H,
+                            m.qk_nope_head_dim + m.qk_rope_head_dim),
+                "w_dkv": mat(lead, D, m.kv_lora_rank + m.qk_rope_head_dim),
+                "kv_norm": ones(lead, m.kv_lora_rank),
+                "w_uk": mat(lead, m.kv_lora_rank, H, m.qk_nope_head_dim),
+                "w_uv": mat(lead, m.kv_lora_rank, H, m.v_head_dim),
+                "w_o": mat(lead, H, m.v_head_dim, D, scale=D ** -0.5)}
+        p = {"w_q": mat(lead, D, H, Dh), "w_k": mat(lead, D, Hkv, Dh),
+             "w_v": mat(lead, D, Hkv, Dh),
+             "w_o": mat(lead, H, Dh, D, scale=D ** -0.5)}
+        if cfg.qkv_bias:
+            p.update(b_q=leaf(lead + (H, Dh), "zeros", dt),
+                     b_k=leaf(lead + (Hkv, Dh), "zeros", dt),
+                     b_v=leaf(lead + (Hkv, Dh), "zeros", dt))
+        return p
+
+    def ffn(lead, d_ff, *experts):
+        if cfg.activation == "swiglu":
+            return {"w_gate": mat(lead, *experts, D, d_ff),
+                    "w_up": mat(lead, *experts, D, d_ff),
+                    "w_down": mat(lead, *experts, d_ff, D)}
+        return {"w_in": mat(lead, *experts, D, d_ff),
+                "w_out": mat(lead, *experts, d_ff, D)}
+
+    def moe(lead):
+        m = cfg.moe
+        p = {"router": mat(lead, D, m.n_experts, dtype=torch.float32),
+             **ffn(lead, m.d_ff_expert, m.n_experts)}
+        if m.n_shared:
+            p["shared"] = ffn(lead, m.d_ff_expert * m.n_shared)
+        return p
+
+    def block(lead, is_moe):
+        return {"ln1": ones(lead, D), "attn": attn(lead), "ln2": ones(lead, D),
+                "mlp": moe(lead) if is_moe else ffn(lead, cfg.d_ff)}
+
+    n_dense, n_moe = _layer_split(cfg)
+    params = {"embed": mat((), cfg.vocab, D, scale=1.0),
+              "ln_f": ones((), D)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = mat((), D, cfg.vocab)
+    if n_dense:
+        params["dense_blocks"] = block((n_dense,), False)
+    if n_moe:
+        params["moe_blocks"] = block((n_moe,), True)
+    if cfg.mtp_depth:
+        params["mtp"] = {"proj": mat((), 2 * D, D), "block": block((), False),
+                         "ln": ones((), D)}
+    return params
+
+
+def param_shapes(cfg: LMConfig) -> Params:
+    """The parameter tree of ``cfg`` with ``(shape, dtype)`` leaves."""
+    _check_dtypes(cfg)
+    return _tree(cfg, lambda shape, init, dtype: (shape, dtype))
+
+
 def init_params(gen: torch.Generator, cfg: LMConfig,
                 device="cuda") -> Params:
     """The reference's parameter tree and shapes, drawn from ``gen`` (a
-    generator of ``device``): each matrix N(0, 1) in fp32 times
-    1/sqrt(fan-in) (``w_o`` 1/sqrt(D), ``embed`` 1), cast to
-    ``cfg.param_dtype``; norms 1, biases 0."""
-    _check_dense(cfg)
-    dt, dev = _dtype(cfg), torch.device(device)
-    D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    L, F_ = cfg.n_layers, cfg.d_ff
+    generator of ``device``): each matrix N(0, 1) times the reference's
+    scale (see :func:`_tree`), in ``cfg.param_dtype`` (the router fp32);
+    norms 1, biases 0.  Matrices are drawn in fp32 :data:`DRAW_CHUNK`
+    elements at a time into the finished tensor, so no fp32 copy of a
+    whole expert stack is ever made."""
+    _check_dtypes(cfg)
+    dev = torch.device(device)
 
-    def dense(shape, scale):
-        w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=dev)
-        return w.mul_(scale).to(dt)
+    def leaf(shape, init, dtype):
+        if init == "ones":
+            return torch.ones(shape, dtype=dtype, device=dev)
+        if init == "zeros":
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        flat = out.view(-1)
+        for i in range(0, flat.numel(), DRAW_CHUNK):
+            n = min(DRAW_CHUNK, flat.numel() - i)
+            flat[i:i + n] = torch.randn(n, generator=gen, dtype=torch.float32,
+                                        device=dev).mul_(init)
+        return out
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=dev)
-
-    attn = {"w_q": dense((L, D, H, Dh), D ** -0.5),
-            "w_k": dense((L, D, Hkv, Dh), D ** -0.5),
-            "w_v": dense((L, D, Hkv, Dh), D ** -0.5),
-            "w_o": dense((L, H, Dh, D), D ** -0.5)}
-    if cfg.qkv_bias:
-        attn.update(b_q=torch.zeros((L, H, Dh), dtype=dt, device=dev),
-                    b_k=torch.zeros((L, Hkv, Dh), dtype=dt, device=dev),
-                    b_v=torch.zeros((L, Hkv, Dh), dtype=dt, device=dev))
-    if cfg.activation == "swiglu":
-        mlp = {"w_gate": dense((L, D, F_), D ** -0.5),
-               "w_up": dense((L, D, F_), D ** -0.5),
-               "w_down": dense((L, F_, D), F_ ** -0.5)}
-    else:
-        mlp = {"w_in": dense((L, D, F_), D ** -0.5),
-               "w_out": dense((L, F_, D), F_ ** -0.5)}
-    params = {"embed": dense((cfg.vocab, D), 1.0), "ln_f": ones(D)}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = dense((D, cfg.vocab), D ** -0.5)
-    params["dense_blocks"] = {"ln1": ones(L, D), "attn": attn,
-                              "ln2": ones(L, D), "mlp": mlp}
-    return params
+    return _tree(cfg, leaf)
 
 
 def _layer(tree, l: int):
@@ -149,7 +226,7 @@ def _layer(tree, l: int):
 # ---------------------------------------------------------------------------
 def _gqa_scores_ctx(q, k, v, mask, scale):
     """q ``[B,Sq,H,Dh]`` grouped against k/v ``[B,Skv,Hkv,Dh]``; mask
-    ``[Sq,Skv]``."""
+    ``[Sq,Skv]``.  v's head dim may differ from q's (MLA)."""
     B, Sq, H, Dh = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, Sq, Hkv, H // Hkv, Dh)
@@ -161,12 +238,13 @@ def _gqa_scores_ctx(q, k, v, mask, scale):
 
 
 def causal_attention(q, k, v, cfg: LMConfig, q_offset: int = 0):
-    """The reference's ``causal_attention``: q ``[B,S,H,Dh]`` against k/v
-    ``[B,S,Hkv,Dh]``, query position i attending kv positions <= i, through
-    the ``flash_attention`` kernel.  The kernel never materializes the
-    ``[S, S]`` scores, so ``cfg.attn_chunk`` (the reference's memory bound)
-    is not read.  It takes the square causal case, the only one the
-    prefill makes: ``q_offset`` 0 and as many keys as queries."""
+    """The reference's ``causal_attention`` for GQA: q ``[B,S,H,Dh]``
+    against k/v ``[B,S,Hkv,Dh]``, query position i attending kv positions
+    <= i, through the ``flash_attention`` kernel.  The kernel never
+    materializes the ``[S, S]`` scores, so ``cfg.attn_chunk`` (the
+    reference's memory bound) is not read.  It takes the square causal
+    case, the only one the prefill makes: ``q_offset`` 0 and as many keys
+    as queries."""
     if q_offset or k.shape[1] != q.shape[1]:
         raise NotImplementedError(
             f"causal attention with q_offset {q_offset} over {k.shape[1]} "
@@ -175,9 +253,34 @@ def causal_attention(q, k, v, cfg: LMConfig, q_offset: int = 0):
     return flash_attention(q, k, v)
 
 
+def chunked_attention(q, k, v, chunk: int):
+    """Causal attention in plain PyTorch, ``chunk`` queries at a time, so
+    the ``[S, S]`` scores never exist whole: q ``[B,S,H,Dq]``, k ``[B,S,
+    Hkv,Dq]``, v ``[B,S,Hkv,Dv]`` -> ``[B,S,H,Dv]``, scaled by 1/sqrt(Dq).
+    Query chunk i reads only the keys up to its last position (the masked
+    ones would add exact zeros).  This is MLA's prefill attention, whose
+    head dims no kernel takes (see the module docstring)."""
+    B, S, H, Dq = q.shape
+    scale = 1.0 / math.sqrt(Dq)
+    out = q.new_empty((B, S, H, v.shape[-1]))
+    pos = torch.arange(S, device=q.device)
+    for lo in range(0, S, chunk):
+        hi = min(lo + chunk, S)
+        mask = pos[None, :hi] <= pos[lo:hi, None]
+        out[:, lo:hi] = _gqa_scores_ctx(q[:, lo:hi], k[:, :hi], v[:, :hi],
+                                        mask, scale)
+    return out
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product."""
     return (x @ w.reshape(w.shape[0], -1)).view(*x.shape[:-1], *w.shape[1:])
+
+
+def _cache_slot(cache_len: int, pos: int, S: int) -> None:
+    if pos + S > cache_len:
+        raise ValueError(f"the cache holds {cache_len} positions; writing "
+                         f"{S} at {pos} overruns it")
 
 
 def gqa_attend(p, cfg: LMConfig, x, positions, *, cache=None,
@@ -202,9 +305,7 @@ def gqa_attend(p, cfg: LMConfig, x, positions, *, cache=None,
     else:
         ck, cv, pos = cache  # ck/cv [B,Smax,Hkv,Dh]; pos an int
         pos = int(pos)
-        if pos + S > ck.shape[1]:
-            raise ValueError(f"the cache holds {ck.shape[1]} positions; "
-                             f"writing {S} at {pos} overruns it")
+        _cache_slot(ck.shape[1], pos, S)
         ck[:, pos:pos + S] = k.to(ck.dtype)
         cv[:, pos:pos + S] = v.to(cv.dtype)
         kv_pos = torch.arange(ck.shape[1], device=x.device)
@@ -218,11 +319,62 @@ def gqa_attend(p, cfg: LMConfig, x, positions, *, cache=None,
 
 def mla_attend(p, cfg: LMConfig, x, positions, *, cache=None,
                attention=None):
-    raise NotImplementedError(f"MLA attention is {NOT_PORTED}")
+    """Multi-head Latent Attention (deepseek-v3).  Returns (out ``[B,S,D]``,
+    the new latent cache entries ``(c_kv [B,S,r], k_pe [B,S,dr])`` or the
+    updated caches).
+
+    Prefill expands the latent KV per head and attends through
+    ``attention`` (default :func:`chunked_attention` at
+    ``cfg.attn_chunk``).  Decode (``cache = (c_kv, k_pe, pos)``, written
+    in place at ``pos``) takes the absorbed scores in latent space:
+    ``q_nope W_uk`` against ``c_kv`` plus ``q_pe`` against ``k_pe``, and
+    the context ``(P c_kv) W_uv``."""
+    m = cfg.mla
+    B, S, D = x.shape
+    H = cfg.n_heads
+    dn, dr, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    scale = 1.0 / math.sqrt(dn + dr)
+
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)    # [B,S,rq]
+    q = _proj(cq, p["w_uq"])                                   # [B,S,H,dn+dr]
+    q_nope = q[..., :dn]
+    q_pe = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+    dkv = x @ p["w_dkv"]                                       # [B,S,r+dr]
+    c_kv = rms_norm(dkv[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope(dkv[..., None, r:], positions, cfg.rope_theta)[:, :, 0]
+
+    if cache is None:
+        k_nope = _proj(c_kv, p["w_uk"])
+        v = _proj(c_kv, p["w_uv"])
+        k = torch.cat([k_nope, k_pe[:, :, None].expand(B, S, H, dr)], dim=-1)
+        qq = torch.cat([q_nope, q_pe], dim=-1)
+        ctx = (attention(qq, k, v) if attention is not None
+               else chunked_attention(qq, k, v, cfg.attn_chunk))
+        new_kv = (c_kv, k_pe)   # the compressed cache entries
+    else:
+        cc, cpe, pos = cache    # cc [B,Smax,r], cpe [B,Smax,dr]
+        pos = int(pos)
+        _cache_slot(cc.shape[1], pos, S)
+        cc[:, pos:pos + S] = c_kv.to(cc.dtype)
+        cpe[:, pos:pos + S] = k_pe.to(cpe.dtype)
+        q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+        s_lat = torch.einsum("bshr,btr->bhst", q_abs, cc)
+        s_pe = torch.einsum("bshk,btk->bhst", q_pe, cpe)
+        scores = (s_lat + s_pe).float() * scale
+        kv_pos = torch.arange(cc.shape[1], device=x.device)
+        mask = kv_pos[None, :] <= (pos + torch.arange(S, device=x.device)
+                                   )[:, None]
+        pr = torch.softmax(scores.masked_fill(~mask, NEG), dim=-1).to(x.dtype)
+        ctx_lat = torch.einsum("bhst,btr->bshr", pr, cc)
+        ctx = torch.einsum("bshr,rhk->bshk", ctx_lat, p["w_uv"])
+        new_kv = (cc, cpe)
+    out = ctx.reshape(B, S, -1) @ p["w_o"].reshape(-1, D)
+    return out, new_kv
 
 
 # ---------------------------------------------------------------------------
-# FFN
+# FFN / MoE
 # ---------------------------------------------------------------------------
 def dense_ffn(p, cfg: LMConfig, x):
     if cfg.activation == "swiglu":
@@ -230,8 +382,145 @@ def dense_ffn(p, cfg: LMConfig, x):
     return _act(cfg.activation, x @ p["w_in"]) @ p["w_out"]
 
 
-def moe_ffn(p, cfg: LMConfig, x):
-    raise NotImplementedError(f"MoE layers are {NOT_PORTED}")
+def capacity(cfg: LMConfig, S: int) -> int:
+    """The reference's expert capacity of one sequence of ``S`` tokens."""
+    m = cfg.moe
+    C = int(math.ceil(S * m.top_k / m.n_experts * m.capacity_factor / 4.0)
+            * 4)
+    return min(C, S)
+
+
+class Routing(NamedTuple):
+    """One MoE layer's routing of ``x [B,S,D]``."""
+
+    probs: torch.Tensor    # [B,S,E] fp32 router softmax
+    gate: torch.Tensor     # [B,S,K] fp32, renormalized over the K
+    expert: torch.Tensor   # [B,S,K] int64, best first (ties: lower index)
+    pos: torch.Tensor      # [B,S,K] int64 place in its expert's queue
+    keep: torch.Tensor     # [B,S,K] bool: pos < capacity (else dropped)
+    capacity: int
+
+
+def _router(p, cfg: LMConfig, x):
+    """(probs, renormalized top-k gates, experts).  Top-k by a stable
+    descending sort, so ties go to the lower expert index, as
+    ``lax.top_k``'s."""
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)     # [B,S,E]
+    vals, idx = probs.sort(dim=-1, descending=True, stable=True)
+    K = cfg.moe.top_k
+    gate, expert = vals[..., :K], idx[..., :K]
+    return probs, gate / gate.sum(-1, keepdim=True).clamp(min=1e-9), expert
+
+
+def place(probs, gate, expert, C: int) -> Routing:
+    """The routing of the assignments ``expert [B,S,K]`` at capacity ``C``:
+    an assignment's place in its expert counts the same sequence's earlier
+    assignments to that expert in the flattened ``(s, k)`` order, and
+    places at or past ``C`` are dropped.  The places come from a stable
+    sort of the assignments by expert (each one's rank in its expert's
+    run)."""
+    B, S, K = expert.shape
+    flat = expert.reshape(B, S * K)
+    sorted_e, order = flat.sort(dim=1, stable=True)
+    first = torch.searchsorted(sorted_e, sorted_e)             # run starts
+    rank = torch.arange(S * K, device=expert.device) - first
+    pos = torch.empty_like(flat).scatter_(1, order, rank).view(B, S, K)
+    return Routing(probs, gate, expert, pos, pos < C, C)
+
+
+def moe_route(p, cfg: LMConfig, x) -> Routing:
+    """The reference's routing: top-k of the fp32 router softmax, gates
+    renormalized over the K before any drop, placed by :func:`place` at
+    the capacity of ``x``'s sequence length."""
+    probs, gate, expert = _router(p, cfg, x)
+    return place(probs, gate, expert, capacity(cfg, x.shape[1]))
+
+
+def _aux_loss(cfg: LMConfig, probs, expert) -> torch.Tensor:
+    """Switch load-balance loss E * sum_e f_e P_e / K, dropped assignments
+    counted in f."""
+    m = cfg.moe
+    E, K = m.n_experts, m.top_k
+    f = torch.bincount(expert.reshape(-1), minlength=E).float() \
+        * (K / expert.numel())
+    return E * (f * probs.mean(dim=(0, 1))).sum() / K
+
+
+def _experts(p, cfg: LMConfig, xe):
+    """The expert FFNs on ``xe [E, N, D]`` as batched products."""
+    if cfg.activation == "swiglu":
+        h = _act("swiglu", torch.bmm(xe, p["w_up"]), torch.bmm(xe, p["w_gate"]))
+        return torch.bmm(h, p["w_down"])
+    return torch.bmm(_act(cfg.activation, torch.bmm(xe, p["w_in"])),
+                     p["w_out"])
+
+
+def moe_ffn(p, cfg: LMConfig, x, route: Routing | None = None):
+    """GShard capacity-based MoE.  x ``[B,S,D]`` -> (y, aux_loss).
+
+    Dispatch by index: the kept assignment (b, s, k) to expert e at place
+    c copies row ``x[b, s]`` into row ``(e*B + b)*C + c`` of an
+    ``[E*B*C + 1, D]`` buffer (dropped ones into the last, a trash row
+    that the experts never read), the experts run on ``[E, B*C, D]``, and
+    each token sums its K experts' output rows weighted by the gates (cast
+    to x's dtype first, as the reference's combine is; a dropped
+    assignment weighs 0).  ``route``: this layer's routing of ``x`` when
+    the caller has it (:func:`moe_route`'s, or one :func:`place` made)."""
+    m = cfg.moe
+    B, S, D = x.shape
+    E, K = m.n_experts, m.top_k
+    r = route if route is not None else moe_route(p, cfg, x)
+    C = r.capacity
+    n = E * B * C
+    b = torch.arange(B, device=x.device)[:, None, None]
+    slot = torch.where(r.keep, (r.expert * B + b) * C + r.pos, n).view(-1)
+    xe = x.new_zeros((n + 1, D))
+    xe.index_copy_(0, slot, x.reshape(B * S, 1, D).expand(B * S, K, D)
+                   .reshape(-1, D))
+    ye = _experts(p, cfg, xe[:n].view(E, B * C, D)).view(n, D)
+    w = torch.where(r.keep, r.gate, 0.0).to(x.dtype)
+    # a dropped assignment weighs 0: any finite row may stand in for it
+    y = torch.bmm(w.view(B * S, 1, K),
+                  ye[slot.clamp(max=n - 1)].view(B * S, K, D))
+    y = y.view(B, S, D)
+    if m.n_shared:
+        y = y + dense_ffn(p["shared"], cfg, x)
+    return y, _aux_loss(cfg, r.probs, r.expert)
+
+
+def moe_ffn_ref(p, cfg: LMConfig, x):
+    """The reference's one-hot formulation of :func:`moe_ffn` (the plain
+    version, for the tests and the card's check): places by a cumulative
+    sum of one-hot assignments, dispatch and combine as ``[B,S,E,C]``
+    einsums.  Returns (y, aux_loss, keep ``[B,S,K]``)."""
+    m = cfg.moe
+    B, S, D = x.shape
+    E, K = m.n_experts, m.top_k
+    C = capacity(cfg, S)
+    probs, gate, idx = _router(p, cfg, x)
+    onehot = F.one_hot(idx, E).float()                         # [B,S,K,E]
+    flat = onehot.reshape(B, S * K, E)
+    pos = ((flat.cumsum(1) - flat) * flat).sum(-1).reshape(B, S, K)
+    keep = pos < C
+    pos_oh = F.one_hot(pos.long().clamp(max=C), C + 1)[..., :C].float() \
+        * keep[..., None]
+    dispatch = torch.einsum("bske,bskc->bsec", onehot, pos_oh)
+    combine = torch.einsum("bske,bskc,bsk->bsec", onehot, pos_oh, gate)
+    xe = torch.einsum("bsec,bsd->ebcd", dispatch.to(x.dtype), x)
+    if cfg.activation == "swiglu":
+        h = _act("swiglu", torch.einsum("ebcd,edf->ebcf", xe, p["w_up"]),
+                 torch.einsum("ebcd,edf->ebcf", xe, p["w_gate"]))
+    else:
+        h = _act(cfg.activation, torch.einsum("ebcd,edf->ebcf", xe,
+                                              p["w_in"]))
+    w_down = p["w_down"] if cfg.activation == "swiglu" else p["w_out"]
+    ye = torch.einsum("ebcf,efd->ebcd", h, w_down)
+    y = torch.einsum("bsec,ebcd->bsd", combine.to(x.dtype), ye)
+    f = onehot.mean(dim=(0, 1, 2)) * K
+    aux = E * (f * probs.mean(dim=(0, 1))).sum() / K
+    if m.n_shared:
+        y = y + dense_ffn(p["shared"], cfg, x)
+    return y, aux, keep
 
 
 # ---------------------------------------------------------------------------
@@ -252,39 +541,47 @@ def block_fn(p, cfg: LMConfig, moe: bool, x, positions, cache=None, *,
     return x + f, aux, new_kv
 
 
+STACKS = (("dense_blocks", False), ("moe_blocks", True))
+
+
 @torch.no_grad()
 def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
             caches=None, positions=None, attention=None):
-    """tokens ``[B,S]`` -> (hidden ``[B,S,D]``, aux_loss, new_caches).
+    """tokens ``[B,S]`` -> (hidden ``[B,S,D]``, summed aux loss, new_caches).
 
-    ``caches``: None for prefill (the new caches are each layer's k/v,
-    stacked ``[L,B,S,Hkv,Dh]``), else the decode caches, updated in place.
-    ``attention`` replaces the prefill attention kernel (the plain
-    ``flash_attention_ref`` for a comparison)."""
-    _check_dense(cfg)
+    The dense stack runs first, then the MoE stack.  ``caches``: None for
+    prefill (the new caches are each layer's k/v, or MLA's latent
+    entries, stacked on a leading ``[L]``), else the decode caches,
+    updated in place.  ``attention`` replaces the prefill attention (the
+    plain ``flash_attention_ref`` for a GQA comparison)."""
+    _check_dtypes(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens].to(_cdtype(cfg))
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    stacked = params["dense_blocks"]
-    L = stacked["ln1"].shape[0]
-    if caches is None:
-        ks, vs = [], []
-        for l in range(L):
-            x, aux, (k, v) = block_fn(_layer(stacked, l), cfg, False, x,
-                                      positions, attention=attention)
-            aux_total = aux_total + aux
-            ks.append(k)
-            vs.append(v)
-        new_caches = {"dense_blocks": (torch.stack(ks), torch.stack(vs))}
-    else:
-        ck, cv, pos = caches["dense_blocks"]
-        for l in range(L):
-            x, aux, _ = block_fn(_layer(stacked, l), cfg, False, x,
-                                 positions, cache=(ck[l], cv[l], pos))
-            aux_total = aux_total + aux
-        new_caches = {"dense_blocks": (ck, cv, pos)}
+    new_caches = {}
+    for stack, moe in STACKS:
+        if stack not in params:
+            continue
+        stacked = params[stack]
+        L = stacked["ln1"].shape[0]
+        if caches is None:
+            ks, vs = [], []
+            for l in range(L):
+                x, aux, (k, v) = block_fn(_layer(stacked, l), cfg, moe, x,
+                                          positions, attention=attention)
+                aux_total = aux_total + aux
+                ks.append(k)
+                vs.append(v)
+            new_caches[stack] = (torch.stack(ks), torch.stack(vs))
+        else:
+            ck, cv, pos = caches[stack]
+            for l in range(L):
+                x, aux, _ = block_fn(_layer(stacked, l), cfg, moe, x,
+                                     positions, cache=(ck[l], cv[l], pos))
+                aux_total = aux_total + aux
+            new_caches[stack] = (ck, cv, pos)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x, aux_total, new_caches
 
@@ -296,8 +593,19 @@ def logits_fn(params: Params, cfg: LMConfig,
     return hidden @ head
 
 
+@torch.no_grad()
 def mtp_head(params: Params, cfg: LMConfig, hidden, tokens):
-    raise NotImplementedError(f"multi-token prediction is {NOT_PORTED}")
+    """DeepSeek-V3 depth-1 multi-token prediction: predict t+2 from
+    (h_t, emb(token_{t+1})).  hidden ``[B,S,D]`` (``forward``'s), tokens
+    ``[B,S]`` -> logits ``[B,S-1,V]``."""
+    p = params["mtp"]
+    emb_next = params["embed"][tokens[:, 1:]].to(hidden.dtype)  # [B,S-1,D]
+    h = torch.cat([hidden[:, :-1], emb_next], dim=-1) @ p["proj"]
+    B, Sm1, _ = h.shape
+    pos = torch.arange(Sm1, device=h.device).expand(B, Sm1)
+    h, _, _ = block_fn(p["block"], cfg, False, h, pos)
+    h = rms_norm(h, p["ln"], cfg.norm_eps)
+    return logits_fn(params, cfg, h)   # predicts tokens[:, 2:] shifted
 
 
 # ---------------------------------------------------------------------------
@@ -305,10 +613,25 @@ def mtp_head(params: Params, cfg: LMConfig, hidden, tokens):
 # ---------------------------------------------------------------------------
 def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None,
                device="cuda") -> dict:
-    _check_dense(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    k = torch.zeros(shape, dtype=dtype or _dtype(cfg), device=device)
-    return {"dense_blocks": (k, torch.zeros_like(k), 0)}
+    """Empty decode caches of each stack, at position 0."""
+    _check_dtypes(cfg)
+    dt = dtype or _dtype(cfg)
+    caches = {}
+    for (name, _), L in zip(STACKS, _layer_split(cfg)):
+        if L == 0:
+            continue
+        if cfg.attention == "mla":
+            m = cfg.mla
+            k = torch.zeros((L, batch, max_seq, m.kv_lora_rank), dtype=dt,
+                            device=device)
+            v = torch.zeros((L, batch, max_seq, m.qk_rope_head_dim),
+                            dtype=dt, device=device)
+        else:
+            k = torch.zeros((L, batch, max_seq, cfg.n_kv_heads,
+                             cfg.head_dim), dtype=dt, device=device)
+            v = torch.zeros_like(k)
+        caches[name] = (k, v, 0)
+    return caches
 
 
 def set_cache_pos(caches: dict, pos) -> dict:

@@ -5,10 +5,11 @@ its routes; delta_apply's and mlp_apply's S' bit-equal and reruns
 bit-equal on both routes (resident and tiled), at ragged row counts; embedding_bag 1e-5 in fp32 and 2e-2 in bf16; segment_mm 2e-5
 in fp32 and 2e-2 in bf16, 1e-5 of the sum of the terms' magnitudes on a
 hub row, bit-equal reruns, and its partition kernels equal to the plain
-partition; flash_attention atol 1e-5 / rtol 1e-4 in fp32
-and 2e-2 in bf16, also at phi4-mini's prefill shape and at ragged
-sequence lengths, on both of its routes (the wgmma kernel bit-equal
-across launches); and a small ``dist`` session at world size 1 over NCCL
+partition; embedding_bag's one-lane bags over DLRM-sized tables (past
+2^23 rows) equal to the plain version; flash_attention atol 1e-5 / rtol
+1e-4 in fp32 and 2e-2 in bf16, also at phi4-mini's prefill shape, at
+olmoe's MHA grouping and at ragged sequence lengths, on both of its
+routes (the wgmma kernel bit-equal across launches); and a small ``dist`` session at world size 1 over NCCL
 against the full pass.  Imports no JAX, so it runs where only PyTorch is
 installed:
 
@@ -397,6 +398,26 @@ def test_embedding_bag_engine_pattern_on_card(cuda, V, R, hot, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("V,B", [(10_000_128, 4096), ((1 << 23) + 5, 512)])
+def test_embedding_bag_one_lane_over_a_large_table_on_card(cuda, V, B):
+    """DLRM's bags: one lane each, over tables past 2^23 rows (RM2's
+    largest holds 10,000,128), ids reaching both ends of the table: equal
+    to the plain version, which is one row each."""
+    g = torch.Generator(device=cuda).manual_seed(V)
+    table = torch.randn((V, 64), generator=g, device=cuda)
+    idx = torch.randint(0, V, (B, 1), generator=g, device=cuda,
+                        dtype=torch.int32)
+    idx[0, 0], idx[1, 0] = 0, V - 1
+    before = embedding_bag.launches
+    out = embedding_bag(table, idx)
+    ref = embedding_bag_ref(table, idx)
+    torch.cuda.synchronize()
+    assert embedding_bag.launches == before + 1
+    assert torch.equal(out, ref)
+    assert torch.equal(out[1], table[V - 1])
+
+
+@pytest.mark.cuda
 def test_embedding_bag_refuses_what_the_kernel_does_not_take(cuda):
     """A CUDA operand of the wrong dtype, shape, layout or device raises;
     nothing falls back to the plain version."""
@@ -641,6 +662,23 @@ def test_flash_attention_wgmma_route_on_card(cuda, S, rep, Dh):
         "wgmma": before["wgmma"] + 2, "mma": before["mma"]}
     assert B * H * -(-S // 128) > torch.cuda.get_device_properties(
         cuda).multi_processor_count
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_flash_attention_mha_on_the_wgmma_route_on_card(cuda):
+    """olmoe-1b-7b's grouping: 16 query heads over 16 kv heads of 128 in
+    bf16 (MHA) takes the wgmma kernel, within FLASH_TOL of the plain
+    version and the same bits in two launches."""
+    q, k, v = _flash_inputs(cuda, 16, 1, 256, 16, 16, 128, torch.bfloat16)
+    before = dict(flash_attention.launches_by_route)
+    out, again = flash_attention(q, k, v), flash_attention(q, k, v)
+    ref = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route == {
+        "wgmma": before["wgmma"] + 2, "mma": before["mma"]}
     assert torch.equal(out, again)
     torch.testing.assert_close(out.float(), ref.float(),
                                **FLASH_TOL[torch.bfloat16])

@@ -284,12 +284,17 @@ def test_registry_raises_for_what_is_not_ported():
     for name in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_arch(name)
+    assert set(NOT_PORTED) == {"schnet", "pna", "nequip", "dimenet",
+                               "schnet-part", "deepseek-v3-opt",
+                               "ripple-papers"}
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
-    moe = dataclasses.replace(get_arch("phi4-mini-3.8b").REDUCED,
-                              attention="mla")
-    with pytest.raises(NotImplementedError):
-        model.init_params(torch.Generator(), moe, "cpu")
+    for name in ("olmoe-1b-7b", "deepseek-v3-671b", "dlrm-rm2"):
+        assert repr(get_arch(name).CONFIG) == repr(jax_get_arch(name).CONFIG)
+    mixed = dataclasses.replace(get_arch("phi4-mini-3.8b").REDUCED,
+                                compute_dtype="float32")
+    with pytest.raises(ValueError):
+        model.init_params(torch.Generator(), mixed, "cpu")
 
 
 def test_lm_serve_cli_on_cpu(capsys):

@@ -1,0 +1,406 @@
+"""The port's MoE and MLA language models (``repro_torch.models.lm``)
+against the reference's (``repro.models.lm``) on the CPU, for the REDUCED
+olmoe-1b-7b (MHA + MoE) and deepseek-v3-671b (MLA, a dense and a MoE
+layer with a shared expert, MTP): the reference's ``init_params`` tree
+goes through ``params_from_numpy``, then both packages run ``moe_ffn``,
+``mla_attend``, ``forward``, ``mtp_head``, the prefill and 6 greedy
+decode steps.  fp32 at atol/rtol 2e-3 (greedy tokens equal); bf16 logits
+within relative L2 2e-2, fed the reference's tokens.  The REDUCED MoE
+configs never drop an assignment (capacity = S), so the drop rule has its
+own cases: capacity factor 0.5 and a router skewed toward one expert,
+where y, the aux loss and the dropped set must match the reference's.
+Also: the one-hot ``moe_ffn_ref`` against the index dispatch, the init
+tree (router fp32), decode against a re-prefill, and the CLI."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs.registry import get_arch as jax_get_arch
+from repro.models.lm import model as jax_model
+from repro_torch.configs.registry import get_arch
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.launch import lm_serve
+from repro_torch.models.lm import model
+from repro_torch.models.lm.convert import params_from_numpy
+from repro_torch.models.lm.steps import make_decode_step, make_prefill_step
+from test_torch_lm import (FP32, TOL, _carried, _cfgs, _np, _prompts,
+                           _rel_l2, _serve)
+
+ARCHS = ["olmoe-1b-7b", "deepseek-v3-671b"]
+
+
+def _moe_layer(pj, pt, l=0):
+    """MoE layer ``l``'s FFN parameters in both packages."""
+    return (jax.tree.map(lambda a: a[l], pj["moe_blocks"]["mlp"]),
+            model._layer(pt["moe_blocks"]["mlp"], l))
+
+
+def _ref_routing(p, cfg, x):
+    """The reference's routing of ``moe_ffn`` (repro/models/lm/model.py
+    :374-392, step for step): (experts [B,S,K], keep [B,S,K])."""
+    m = cfg.moe
+    B, S, _ = x.shape
+    E, K = m.n_experts, m.top_k
+    C = min(int(np.ceil(S * K / E * m.capacity_factor / 4.0) * 4), S)
+    probs = jax.nn.softmax(x.astype(jnp.float32) @ p["router"], axis=-1)
+    _, idx = jax.lax.top_k(probs, K)
+    flat = jax.nn.one_hot(idx, E, dtype=jnp.float32).reshape(B, S * K, E)
+    pos = ((jnp.cumsum(flat, axis=1) - flat) * flat).sum(-1)
+    return np.asarray(idx), np.asarray(pos.reshape(B, S, K) < C)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_match_reference(arch):
+    for attr in ("CONFIG", "REDUCED"):
+        assert dataclasses.asdict(getattr(get_arch(arch), attr)) == \
+            dataclasses.asdict(getattr(jax_get_arch(arch), attr))
+
+
+@pytest.mark.parametrize("S", [1, 7, 32, 2048])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_capacity_is_the_reference_rule(arch, S):
+    for cfg in (get_arch(arch).CONFIG, get_arch(arch).REDUCED):
+        m = cfg.moe
+        want = min(int(np.ceil(S * m.top_k / m.n_experts * m.capacity_factor
+                               / 4.0) * 4), S)
+        assert model.capacity(cfg, S) == want
+    assert model.capacity(get_arch("olmoe-1b-7b").CONFIG, 2048) == 320
+    assert model.capacity(get_arch("deepseek-v3-671b").CONFIG, 2048) == 80
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("case", ["no_drops", "drops", "skewed"])
+def test_moe_ffn_matches_reference_fp32(arch, case):
+    """y, the aux loss and the dropped set of one MoE layer.  ``drops``:
+    capacity factor 0.5; ``skewed``: also inputs and a router that send
+    every token to expert 0 first, so most of its assignments drop."""
+    over = dict(FP32)
+    if case != "no_drops":
+        over["moe"] = dataclasses.replace(
+            get_arch(arch).REDUCED.moe, capacity_factor=0.5)
+    cfg_j, cfg_t = _cfgs(arch, **over)
+    pj, pt = _carried(cfg_j, cfg_t, seed=6)
+    lj, lt = _moe_layer(pj, pt)
+    B, S = 2, 32
+    x = np.random.default_rng(6).normal(
+        size=(B, S, cfg_t.d_model)).astype(np.float32)
+    if case == "skewed":   # every token along feature 0, which expert 0 reads
+        x[..., 0] += 4.0
+        lj = dict(lj, router=lj["router"].at[0, 0].add(4.0))
+        lt = dict(lt, router=lt["router"].clone())
+        lt["router"][0, 0] += 4.0
+    yj, aux_j = jax_model.moe_ffn(lj, cfg_j, jnp.asarray(x))
+    yt, aux_t = model.moe_ffn(lt, cfg_t, torch.as_tensor(x))
+    np.testing.assert_allclose(_np(yt), _np(yj), **TOL)
+    np.testing.assert_allclose(float(aux_t), float(aux_j), **TOL)
+    idx_j, keep_j = _ref_routing(lj, cfg_j, jnp.asarray(x))
+    route = model.moe_route(lt, cfg_t, torch.as_tensor(x))
+    np.testing.assert_array_equal(route.expert.numpy(), idx_j)
+    np.testing.assert_array_equal(route.keep.numpy(), keep_j)
+    dropped = int((~route.keep).sum())
+    if case == "no_drops":
+        assert route.capacity == S and dropped == 0
+    elif case == "skewed":
+        assert (route.expert[..., 0] == 0).all()
+        assert dropped >= B * (S - route.capacity)
+    else:
+        assert dropped > 0
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("cf", [2.0, 0.5])
+def test_moe_ffn_matches_one_hot_ref(arch, cf):
+    """The index dispatch against the one-hot formulation (the card's
+    plain version): y, aux and the dropped set; and a ``route`` handed in
+    changes nothing."""
+    _, cfg = _cfgs(arch, **FP32)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+    params = model.init_params(torch.Generator().manual_seed(7), cfg, "cpu")
+    p = model._layer(params["moe_blocks"]["mlp"], 0)
+    x = torch.randn((3, 29, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(7))
+    y, aux = model.moe_ffn(p, cfg, x)
+    y_ref, aux_ref, keep = model.moe_ffn_ref(p, cfg, x)
+    route = model.moe_route(p, cfg, x)
+    torch.testing.assert_close(y, y_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(aux, aux_ref, atol=1e-6, rtol=1e-6)
+    assert torch.equal(route.keep, keep)
+    assert bool((~keep).any()) == (cf < 1)
+    y2, _ = model.moe_ffn(p, cfg, x, route=route)
+    assert torch.equal(y2, y)
+
+
+def test_top_k_ties_go_to_the_lower_expert():
+    """Equal router probabilities: the lower expert index first, as
+    ``lax.top_k`` orders them."""
+    _, cfg = _cfgs("olmoe-1b-7b", **FP32)
+    p = {"router": torch.zeros((cfg.d_model, cfg.moe.n_experts))}
+    route = model.moe_route(p, cfg, torch.randn(1, 5, cfg.d_model))
+    assert route.expert.tolist() == [[[0, 1]] * 5]
+    torch.testing.assert_close(route.gate, torch.full((1, 5, 2), 0.5))
+
+
+def test_mla_attend_matches_reference_fp32():
+    """One layer's ``mla_attend``: the prefill (expanded k/v, the chunked
+    plain attention, at a chunk smaller than S) and an absorbed decode
+    step of 3 queries against a latent cache written at position 5."""
+    cfg_j, cfg_t = _cfgs("deepseek-v3-671b", **FP32, attn_chunk=4)
+    pj, pt = _carried(cfg_j, cfg_t, seed=8)
+    lj = jax.tree.map(lambda a: a[0], pj["dense_blocks"]["attn"])
+    lt = model._layer(pt["dense_blocks"]["attn"], 0)
+    rng = np.random.default_rng(8)
+    B, S, smax = 2, 11, 12
+    x = rng.normal(size=(B, S, cfg_t.d_model)).astype(np.float32)
+    pos = np.tile(np.arange(S), (B, 1))
+    oj, (cj, pej) = jax_model.mla_attend(lj, cfg_j, jnp.asarray(x),
+                                         jnp.asarray(pos))
+    ot, (ct, pet) = model.mla_attend(lt, cfg_t, torch.as_tensor(x),
+                                     torch.as_tensor(pos))
+    for got, want in ((ot, oj), (ct, cj), (pet, pej)):
+        assert tuple(got.shape) == tuple(want.shape)
+        np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+    m = cfg_t.mla
+    cc = rng.normal(size=(B, smax, m.kv_lora_rank)).astype(np.float32)
+    cpe = rng.normal(size=(B, smax, m.qk_rope_head_dim)).astype(np.float32)
+    x3, pos3 = x[:, :3], np.tile(np.arange(5, 8), (B, 1))
+    oj, (ccj, cpej) = jax_model.mla_attend(
+        lj, cfg_j, jnp.asarray(x3), jnp.asarray(pos3),
+        cache=(jnp.asarray(cc), jnp.asarray(cpe), jnp.asarray(5, jnp.int32)))
+    ot, (cct, cpet) = model.mla_attend(
+        lt, cfg_t, torch.as_tensor(x3), torch.as_tensor(pos3),
+        cache=(torch.as_tensor(cc.copy()), torch.as_tensor(cpe.copy()), 5))
+    for got, want in ((ot, oj), (cct, ccj), (cpet, cpej)):
+        np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 16, 64])
+def test_chunked_attention_is_chunk_invariant(chunk):
+    """MLA's plain prefill attention (q/k head dim 24, v 16) at any chunk
+    equals one whole-sequence pass of the reference's formula."""
+    g = torch.Generator().manual_seed(chunk)
+    q, k = (torch.randn((2, 16, 4, 24), generator=g) for _ in range(2))
+    v = torch.randn((2, 16, 4, 16), generator=g)
+    mask = torch.ones((16, 16), dtype=torch.bool).tril()
+    want = model._gqa_scores_ctx(q, k, v, mask, 24 ** -0.5)
+    torch.testing.assert_close(model.chunked_attention(q, k, v, chunk), want,
+                               atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_matches_reference_fp32(arch):
+    """``forward`` without caches over both stacks: the final hidden
+    states, the summed aux loss, and each stack's cache entries."""
+    cfg_j, cfg_t = _cfgs(arch, **FP32)
+    pj, pt = _carried(cfg_j, cfg_t, seed=4)
+    tokens = _prompts(cfg_j, 2, 20, seed=4)
+    hj, aux_j, kvj = jax_model.forward(pj, cfg_j, jnp.asarray(tokens))
+    ht, aux_t, kvt = model.forward(pt, cfg_t, torch.as_tensor(tokens))
+    np.testing.assert_allclose(_np(ht), _np(hj), **TOL)
+    assert float(aux_t) > 0
+    np.testing.assert_allclose(float(aux_t), float(aux_j), **TOL)
+    assert set(kvt) == set(kvj)
+    for stack in kvj:
+        for want, got in zip(kvj[stack], kvt[stack]):
+            assert tuple(got.shape) == tuple(want.shape)
+            np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("S", [32, 24])
+def test_prefill_and_decode_match_reference_fp32(arch, S):
+    """The prefill's logits and every stack's cache (padded to the decode
+    length), then 6 greedy decode steps: logits, caches, tokens equal."""
+    steps, toks_j, toks_t = _serve(arch, S)
+    lj, lt, cj, ct = steps[0]
+    np.testing.assert_allclose(_np(lt), _np(lj), **TOL)
+    assert set(ct) == set(cj)
+    for stack in cj:
+        (kj, vj, pos_j), (kt, vt, pos_t) = cj[stack], ct[stack]
+        assert int(pos_j) == pos_t == S
+        for got, want in ((kt, kj), (vt, vj)):
+            assert tuple(got.shape) == tuple(want.shape)
+            np.testing.assert_allclose(_np(got[:, :, :S]),
+                                       _np(want[:, :, :S]), **TOL)
+            assert not got[:, :, S:].any()
+    for i, (lj, lt, cj, ct) in enumerate(steps[1:]):
+        np.testing.assert_allclose(_np(lt), _np(lj), **TOL,
+                                   err_msg=f"decode step {i}")
+        for stack in cj:
+            assert ct[stack][2] == S + i + 1
+    for stack in cj:     # the port's caches were written in place
+        for got, want in zip(ct[stack][:2], cj[stack][:2]):
+            np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    np.testing.assert_array_equal(toks_t, toks_j)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_reference_bf16(arch):
+    """The configs' own dtype (bf16, router fp32): logits within relative
+    L2 2e-2 of the reference's, fed the reference's tokens."""
+    steps, _, _ = _serve(arch, 32, over={}, feed="ref")
+    assert steps[0][1].dtype == torch.bfloat16
+    for i, (lj, lt, _, _) in enumerate(steps):
+        assert _rel_l2(lt, lj) <= 2e-2, f"step {i}"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mtp_head_matches_reference(dtype):
+    """The MTP logits of ``forward``'s hidden states.  In bf16 both heads
+    take the reference's hidden states: a bf16 near-tie in the router
+    flips an expert at some position, a real difference upstream of the
+    head."""
+    over = dict(param_dtype=dtype, compute_dtype=dtype)
+    cfg_j, cfg_t = _cfgs("deepseek-v3-671b", **over)
+    pj, pt = _carried(cfg_j, cfg_t, seed=9)
+    tokens = _prompts(cfg_j, 2, 17, seed=9)
+    hj, _, _ = jax_model.forward(pj, cfg_j, jnp.asarray(tokens))
+    ht, _, _ = model.forward(pt, cfg_t, torch.as_tensor(tokens))
+    if dtype == "bfloat16":
+        ht = torch.as_tensor(_np(hj)).to(torch.bfloat16)
+    want = jax_model.mtp_head(pj, cfg_j, hj, jnp.asarray(tokens))
+    got = model.mtp_head(pt, cfg_t, ht, torch.as_tensor(tokens))
+    assert tuple(got.shape) == tuple(want.shape) == (2, 16, cfg_t.vocab)
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    else:
+        assert _rel_l2(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_reprefill(arch):
+    """With the capacity factor that drops nothing (E / K), the logits of
+    decode step t equal a fresh prefill of the prompt and the tokens
+    generated so far (fp32), as the card's check holds them."""
+    _, cfg = _cfgs(arch, **FP32)
+    m = cfg.moe
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    params = model.init_params(torch.Generator().manual_seed(1), cfg, "cpu")
+    prompts = torch.as_tensor(_prompts(cfg, 2, 20, seed=1))
+    logits, caches = make_prefill_step(cfg, max_seq=24)(params, prompts)
+    seq, decode = prompts, make_decode_step(cfg)
+    for i in range(4):
+        tok = logits.reshape(2, -1).argmax(-1)
+        seq = torch.cat([seq, tok[:, None]], dim=1)
+        logits, caches = decode(params, caches, tok, 20 + i)
+        again, _ = make_prefill_step(cfg)(params, seq)
+        torch.testing.assert_close(logits, again[:, -1], **TOL)
+
+
+def test_mla_decode_from_an_empty_cache_matches_prefill():
+    """Token by token from ``init_cache``'s latent caches, decode reaches
+    the prefill's last logits and caches (fp32, no drops)."""
+    _, cfg = _cfgs("deepseek-v3-671b", **FP32)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=2.0))
+    params = model.init_params(torch.Generator().manual_seed(2), cfg, "cpu")
+    prompts = torch.as_tensor(_prompts(cfg, 2, 10, seed=2))
+    want, want_caches = make_prefill_step(cfg, max_seq=12)(params, prompts)
+    caches = model.init_cache(cfg, 2, 12, device="cpu")
+    m = cfg.mla
+    assert {k: (tuple(c[0].shape), tuple(c[1].shape), c[2])
+            for k, c in caches.items()} == {
+        "dense_blocks": ((1, 2, 12, m.kv_lora_rank),
+                         (1, 2, 12, m.qk_rope_head_dim), 0),
+        "moe_blocks": ((1, 2, 12, m.kv_lora_rank),
+                       (1, 2, 12, m.qk_rope_head_dim), 0)}
+    decode = make_decode_step(cfg)
+    for i in range(10):
+        logits, caches = decode(params, caches, prompts[:, i], i)
+    torch.testing.assert_close(logits, want[:, -1], **TOL)
+    for stack in caches:
+        assert caches[stack][2] == want_caches[stack][2] == 10
+        for got, ref in zip(caches[stack][:2], want_caches[stack][:2]):
+            torch.testing.assert_close(got, ref, **TOL)
+    with pytest.raises(ValueError):      # writing past the cache's end
+        decode(params, model.set_cache_pos(caches, 12), prompts[:, 0], 12)
+
+
+@pytest.mark.parametrize("arch,launches", [("olmoe-1b-7b", 2),
+                                           ("deepseek-v3-671b", 0)])
+def test_prefill_attention_routes(monkeypatch, arch, launches):
+    """olmoe's MHA prefill calls the ``flash_attention`` wrapper once a
+    layer; deepseek's MLA prefill never does (its chunked plain route)."""
+    _, cfg = _cfgs(arch, **FP32)
+    params = model.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    calls = []
+
+    def spy(q, k, v):
+        calls.append(q.shape)
+        return flash_attention_ref(q, k, v)
+
+    monkeypatch.setattr(model, "flash_attention", spy)
+    make_prefill_step(cfg)(params, torch.as_tensor(_prompts(cfg, 2, 16)))
+    assert len(calls) == launches
+    assert all(c == (2, 16, cfg.n_heads, cfg.head_dim) for c in calls)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_tree_matches_reference(arch):
+    """Same keys, shapes and dtypes as the reference's tree, the router
+    fp32 in a bf16 model; expert stacks drawn at the reference's scale
+    1/sqrt(E), the router at 1/sqrt(D)."""
+    cfg_j, cfg_t = _cfgs(arch, n_layers=3)
+    want = jax.eval_shape(lambda: jax_model.init_params(
+        jax.random.PRNGKey(0), cfg_j))
+    got = model.init_params(torch.Generator().manual_seed(0), cfg_t, "cpu")
+    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+    flat_g = {jax.tree_util.keystr(p): v for p, v in
+              jax.tree_util.tree_flatten_with_path(got)[0]}
+    assert len(flat_w) == len(flat_g)
+    for path, leaf in flat_w:
+        t = flat_g[jax.tree_util.keystr(path)]
+        assert tuple(t.shape) == leaf.shape, path
+        assert str(t.dtype).split(".")[1] == leaf.dtype.name, path
+    mlp = got["moe_blocks"]["mlp"]
+    assert mlp["router"].dtype == torch.float32
+    E = cfg_t.moe.n_experts
+    assert abs(mlp["w_up"].float().std().item() * E ** 0.5 - 1.0) < 0.05
+    assert abs(mlp["router"].std().item() * cfg_t.d_model ** 0.5 - 1.0) < 0.1
+
+
+def test_init_params_draws_in_chunks(monkeypatch):
+    """A leaf larger than DRAW_CHUNK is drawn a chunk at a time into the
+    finished tensor, every element drawn once."""
+    monkeypatch.setattr(model, "DRAW_CHUNK", 1000)
+    _, cfg = _cfgs("olmoe-1b-7b")
+    params = model.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    w = params["moe_blocks"]["mlp"]["w_up"]
+    assert w.numel() > 1000 and w.dtype == torch.bfloat16
+    assert bool((w != 0).all())
+    assert abs(w.float().std().item() * cfg.moe.n_experts ** 0.5 - 1) < 0.05
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_params_from_numpy_keeps_the_router_fp32(arch):
+    cfg_j, cfg_t = _cfgs(arch)
+    tree = jax.tree.map(np.asarray, jax_model.init_params(
+        jax.random.PRNGKey(3), cfg_j))
+    params = params_from_numpy(tree, cfg_t, "cpu")
+    assert params["embed"].dtype == torch.bfloat16
+    assert params["moe_blocks"]["mlp"]["router"].dtype == torch.float32
+    np.testing.assert_array_equal(
+        params["moe_blocks"]["mlp"]["router"].numpy(),
+        tree["moe_blocks"]["mlp"]["router"])
+    bad = jax.tree.map(lambda a: a, tree)
+    bad["moe_blocks"]["mlp"]["w_up"] = bad["moe_blocks"]["mlp"]["w_up"][:, 1:]
+    with pytest.raises(ValueError, match="w_up"):
+        params_from_numpy(bad, cfg_t, "cpu")
+    with pytest.raises(ValueError):      # the other arch's tree
+        params_from_numpy(tree, _cfgs(
+            ARCHS[1 - ARCHS.index(arch)])[1], "cpu")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_serve_cli_on_cpu(capsys, arch):
+    toks = lm_serve.main(["--device", "cpu", "--arch", arch, "--batch", "2",
+                          "--prompt-len", "12", "--tokens", "5"])
+    assert tuple(toks.shape) == (2, 5)
+    assert f"{arch}: generated (2, 5)" in capsys.readouterr().out
