@@ -17,8 +17,15 @@ DLRM-RM2's largest table (10,000,128 rows x 64, 262,144 one-lane bags,
 fp32); the hop
 kernels in turns with the designs their resident routes replaced
 (``prev_ms``: extremum_apply's K-chunked route, delta_apply's and
-mlp_apply's tiled route); every row names the route it took, which must
-be the kernel's plan.  delta_apply and mlp_apply then run at
+mlp_apply's tiled route), embedding_bag in turns with its span route (the
+PR 13 design, which its narrow route replaced for short bags; bit-equal
+to it on bags of one span); every row names the route it took, which
+must be the kernel's plan, and embedding_bag's reruns must be bit-equal.
+embedding_bag also runs short bags (hot 0-32, both dtypes, ragged widths,
+padding) and a route sweep (hot 1-256, B 512 and 262,144, d 64 and 128,
+fp32 and bf16, narrow against span in turns: a ``bag_sweep`` line with
+the crossover that ops.NARROW_MAX_HOT records).  delta_apply and
+mlp_apply then run at
 ragged shapes that reach each of their routes (R 1-65536, Din 48 and 128,
 Dh 20-128, Dout 7-200, mean and relu in all four combinations), each
 launch rerun and held bit for bit to the first; their S' is held
@@ -39,10 +46,12 @@ S[l][v,d] == H[l-1][C[l][v,d], d] exactly, on the device, and report
 their SHRINK counters and filter pass share; the bounded ones hold their
 aux state A to a fresh reaggregation of the final state (sums within
 2e-3, maxima bit-equal, PNA's max witnesses exact) and report the pull
-and PNA's bag rectangle per hop.  The bootstrap of every session is the
-full pass, whose invertible aggregation is segment_mm: each invertible
-session's bootstrap must launch it once per layer.  Then a ga-s run in
-approximate mode (tolerance 0.1) over 10 batches of feature jitter holds
+and PNA's bag rectangle per hop (gp-m its embedding_bag launches by
+route, as its recovery in phase 5 does).  The bootstrap of every session
+is the full pass, whose invertible aggregation is segment_mm: each
+invertible session's bootstrap must launch it once per layer.  Then a
+ga-s run in approximate mode (tolerance 0.1) over 10 batches of feature
+jitter holds
 every published row within its certified bound; two ``full``-engine
 sessions (gc-s, and gc-w for weights other than 1) run the first 5
 batches of the stream, launching segment_mm once per layer per batch, and
@@ -140,9 +149,10 @@ with the same dropped set, and decode against a re-prefill measured;
 deepseek-v3's mtp_head once at full width (shape, finite).  (c)
 DLRM-RM2 at its published size (26 tables, 49,888,768 rows x 64 fp32)
 serves serve_p99 (batch 512), serve_bulk (262,144) and retrieval_cand
-(1 query x 1,000,000 candidates): 26 embedding_bag launches a forward and
-nothing else, outputs (and losses) within relative L2 1e-5 of the same
-functions with embedding_bag_ref; ms, items/s and peak GB.  Each model
+(1 query x 1,000,000 candidates): 26 embedding_bag launches a forward, all
+on its narrow route, and nothing else, outputs (and losses) within
+relative L2 1e-5 of the same functions with embedding_bag_ref; ms,
+items/s and peak GB.  Each model
 is freed before the next.
 
 Phase 1 prints ptxas's registers and spills for every kernel
@@ -151,7 +161,7 @@ run with a traceback and a non-zero exit; nothing is caught.  Without a
 CUDA card, or without the repository beside this file, it exits non-zero before printing any result.  Output ends with the run's
 seconds, the card line (nvidia-smi's name and power limit), the kernels
 JSON line (each kernel's launches with flash_attention's and
-embedding_bag's by path) and the device JSON line.
+embedding_bag's by route and by path) and the device JSON line.
 
 Precision: TF32 is off for matmuls and cuDNN, so the SAGE self term, the
 bootstrap, the oracle and the LM's fp32 checks run in full fp32, as the
@@ -242,6 +252,9 @@ MOE_LMS = {
 # largest table, the bag shape phase 2 times
 DLRM = dict(serve_p99=512, serve_bulk=262_144, candidates=1_000_000)
 DLRM_BAG = dict(V=10_000_128, B=262_144, hot=1, d=64)
+# phase 2: embedding_bag's route sweep (ops.NARROW_MAX_HOT is its crossover)
+BAG_SWEEP = dict(hot=(1, 2, 4, 8, 16, 32, 64, 256), B=(512, 262_144),
+                 d=(64, 128), V=1 << 22)
 # relative L2 of the DLRM outputs with the kernel against the same function
 # with embedding_bag_ref: fp32 sums of one row each, so only the MLPs'
 # summation order is left
@@ -729,9 +742,15 @@ def check_embedding_bag(seed: int, V: int, B: int, hot: int, d: int,
     -- bag r holds min(degs[r], hot) ids left-packed, the sentinel V (a
     zero row appended to the table, plus the engine's trash row) pads the
     rest, and the kernel skips it as padding_idx, as the engine calls it;
-    the table is relu'd like the embeddings it gathers."""
+    the table is relu'd like the embeddings it gathers.  The row names the
+    route the wrapper took, which must be kernel_plan's, and a rerun must
+    be bit-equal.  Timed, it also times the span route in turns with it
+    (``prev_ms``: the PR 13 design, which the narrow route replaced for
+    short bags, launched through ops.launch, uncounted, held to the same
+    bars and, on a bag of one span, bit-equal to the narrow route)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels._resident import device_limits
+    from repro_torch.kernels.embedding_bag import embedding_bag, ops
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     table = torch.randn((V, d), generator=g, device=DEVICE)
@@ -747,6 +766,8 @@ def check_embedding_bag(seed: int, V: int, B: int, hot: int, d: int,
         pad = V
         kept = int(lens.sum())
     table = table.to(dtype)
+    plan = ops.kernel_plan(B, hot, d, dtype == torch.bfloat16,
+                           device_limits(0)[0])
 
     def kernel():
         return embedding_bag(table, ids, padding_idx=pad)
@@ -754,28 +775,108 @@ def check_embedding_bag(seed: int, V: int, B: int, hot: int, d: int,
     def plain():
         return embedding_bag_ref(table, ids, padding_idx=pad)
 
-    out, ref = kernel(), plain()
+    before = dict(embedding_bag.launches_by_route)
+    out = kernel()
+    route = route_taken(embedding_bag, before)
+    label = f"embedding_bag V={V} B={B} hot={hot} d={d} {dtype}"
+    if route != plan["route"]:
+        raise AssertionError(f"{label} took {route}, kernel_plan says "
+                             f"{plan}")
+    ref, again = plain(), kernel()
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), **BAG_TOL[dtype])
-    row = dict(kernel="embedding_bag", V=table.shape[0], B=B, hot=hot, d=d,
-               dtype=str(dtype), kept_lanes=kept, padding_idx=pad,
+    if not torch.equal(again, out):
+        raise AssertionError(f"{label}: a rerun differs")
+    row = dict(kernel="embedding_bag", route=route, V=table.shape[0], B=B,
+               hot=hot, d=d, dtype=str(dtype), kept_lanes=kept,
+               padding_idx=pad,
                max_abs_err=(out.float() - ref.float()).abs().max().item())
     if pad is not None:
         # the sentinel row is zero: skipping it changes nothing
         torch.testing.assert_close(embedding_bag(table, ids), out,
                                    **BAG_TOL[dtype])
     if timed:
+        span = ops.span_plan(hot)
+        prev = torch.empty_like(out)
+
+        def span_route():
+            ops.launch(span, table, ids, prev, pad)
+
+        span_route()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(prev.float(), ref.float(),
+                                   **BAG_TOL[dtype])
+        if span["spans"] == 1 and not torch.equal(prev, out):
+            raise AssertionError(f"{label}: the span route differs from "
+                                 f"the {route} route")
         nbytes, flops = bag_work(B, hot, d, kept, table.element_size())
         b_ms, b_by = bound_ms(nbytes, flops)
         slow = B * hot * d > 1 << 30   # the plain version's gather is huge
+        t = in_turns({"ms": kernel, "prev_ms": span_route})
         row.update(
-            ms=device_ms(kernel), rect_bytes=4 * B * hot,
+            ms=t["ms"][0], ms_turns=t["ms"][1], prev_ms=t["prev_ms"][0],
+            prev_ms_turns=t["prev_ms"][1], rect_bytes=4 * B * hot,
             plain_ms=device_ms(plain, iters=5 if slow else 25,
                                warmup=1 if slow else 3),
             library_ms=device_ms(lambda: F.embedding_bag(
                 ids, table, mode="sum", padding_idx=pad)),
             bound_ms=b_ms, bound_by=b_by)
     return row
+
+
+def phase_bag_sweep() -> dict:
+    """embedding_bag's narrow route against its span route at every
+    (dtype, d, B, hot) of BAG_SWEEP, ids uniform over a table of
+    BAG_SWEEP["V"] rows, both launched through ops.launch (uncounted) and
+    timed in turns; the two must be bit-equal (every bag is one span).
+    Prints one ``bag_sweep`` line: each shape's ms, and the largest hot up
+    to which the narrow route is nowhere more than 5% slower (run-to-run
+    spread), the crossover that ops.NARROW_MAX_HOT records."""
+    from repro_torch.kernels._resident import device_limits
+    from repro_torch.kernels.embedding_bag import ops
+    n_sm = device_limits(0)[0]
+    V = BAG_SWEEP["V"]
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    points = []
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for d in BAG_SWEEP["d"]:
+            table = torch.randn((V, d), generator=g, device=DEVICE).to(dtype)
+            for B in BAG_SWEEP["B"]:
+                for hot in BAG_SWEEP["hot"]:
+                    ids = torch.randint(0, V, (B, hot), generator=g,
+                                        device=DEVICE, dtype=torch.int32)
+                    outs = [torch.empty((B, d), dtype=dtype, device=DEVICE)
+                            for _ in range(2)]
+                    plans = (ops.narrow_plan(B, hot, d, bf16, n_sm),
+                             ops.span_plan(hot))
+                    runs = {p["route"]: functools.partial(
+                        ops.launch, p, table, ids, o, None)
+                        for p, o in zip(plans, outs)}
+                    for run in runs.values():
+                        run()
+                    torch.cuda.synchronize()
+                    if not torch.equal(*outs):
+                        raise AssertionError(f"bag_sweep: the routes differ "
+                                             f"at B={B} hot={hot} d={d} "
+                                             f"{dtype}")
+                    t = in_turns(runs)
+                    points.append(dict(
+                        dtype=str(dtype), d=d, B=B, hot=hot,
+                        narrow_ms=t["narrow"][0], span_ms=t["span"][0],
+                        bound_ms=bound_ms(*bag_work(
+                            B, hot, d, B * hot, table.element_size()))[0]))
+            del table, ids, outs
+    crossover = 0
+    for hot in BAG_SWEEP["hot"]:
+        if any(p["narrow_ms"] > 1.05 * p["span_ms"] for p in points
+               if p["hot"] == hot):
+            break
+        crossover = hot
+    result = dict(V=V, n_sm=n_sm, points=points, crossover_hot=crossover,
+                  narrow_max_hot=ops.NARROW_MAX_HOT)
+    log("bag_sweep", json.dumps(result))
+    return result
 
 
 def flash_work(B: int, S: int, H: int, Hkv: int, Dh: int,
@@ -944,6 +1045,22 @@ def phase_kernels() -> list[dict]:
         degs = torch.randint(0, hot + 1, (B,), generator=gen)
         rows.append(check_embedding_bag(len(rows), V, B, hot, d, degs=degs,
                                         timed=False))
+    # short bags: hot 0-32 (the narrow route up to ops.NARROW_MAX_HOT, the
+    # span route past it), rows of 10 and 16 vectors (fp32 d 40, 64), a B
+    # that leaves the last warp tile part-filled, padding; then widths the
+    # narrow route does not take (rows not a multiple of 16 bytes)
+    for dtype in (torch.float32, torch.bfloat16):
+        for hot in (0, 1, 2, 3, 5, 16, 32):
+            for d in (40, 64):
+                rows.append(check_embedding_bag(len(rows), 5000, 1001, hot,
+                                                d, dtype, timed=False))
+        for hot in (4, 16):
+            degs = torch.randint(0, hot + 1, (1001,), generator=gen)
+            rows.append(check_embedding_bag(len(rows), 5000, 1001, hot, 64,
+                                            dtype, degs=degs, timed=False))
+    for d, dtype in ((5, torch.float32), (12, torch.bfloat16)):
+        rows.append(check_embedding_bag(len(rows), 5000, 1001, 4, d, dtype,
+                                        timed=False))
     # the main path's shapes: bags of arxiv in-degrees, the hub's first
     indeg = arxiv_in_degrees()
     for B in (64, 2048):
@@ -983,6 +1100,12 @@ def phase_kernels() -> list[dict]:
                                   timed=False))
     for row in rows:
         log("kernel_check", json.dumps(row))
+    for route in ("narrow", "span"):
+        if not any(r["kernel"] == "embedding_bag" and r["route"] == route
+                   for r in rows):
+            raise AssertionError(f"embedding_bag never took its {route} "
+                                 f"route in phase 2")
+    phase_bag_sweep()
     phase_hop_sweep()
     return rows
 
@@ -1163,10 +1286,11 @@ def run_session(workload: str, counters: dict, kernel: str | None) -> dict:
     by_shape = {name: dict(fn.launches_by_shape) for name, fn in
                 counters.items() if hasattr(fn, "launches_by_shape")
                 and fn.launches_by_shape}
-    # the hop kernels' launches by route: none on the routes the resident
-    # designs replaced
+    # the kernels' launches by route: the hop kernels' none on the routes
+    # the resident designs replaced
     routes = {name: dict(counters[name].launches_by_route) for name in
-              ("delta_apply", "mlp_apply", "extremum_apply")}
+              ("delta_apply", "mlp_apply", "extremum_apply",
+               "embedding_bag")}
     for name, replaced in (("delta_apply", "tiled"), ("mlp_apply", "tiled"),
                            ("extremum_apply", "kchunk")):
         if routes[name][replaced]:
@@ -1913,6 +2037,12 @@ def run_recovery(workload: str, kernel: str, counters: dict,
                                  f"retries")
         got = second.sync()
         result = dict(workload=workload, card=card, launches=launches,
+                      launches_by_route={
+                          name: {r: n for r, n in fn.launches_by_route.items()
+                                 if n}
+                          for name, fn in counters.items()
+                          if hasattr(fn, "launches_by_route")
+                          and fn.launches},
                       replay_retries=eng.retries)
         if eng.monotonic:
             for l in range(1, L + 1):
@@ -2670,15 +2800,20 @@ def run_dlrm(counters: dict) -> dict:
 
     def counted(fn, forwards: int = 1):
         """``fn`` (``forwards`` forwards) between a reset and a read of the
-        launch counts: embedding_bag 26 times a forward, nothing else."""
+        launch counts: embedding_bag 26 times a forward, all on its narrow
+        route, nothing else."""
         reset_counts(counters)
         out = fn()
         torch.cuda.synchronize()
         launches = {n: c.launches for n, c in counters.items() if c.launches}
-        if launches != {"embedding_bag": F_ * forwards}:
+        routes = counters["embedding_bag"].launches_by_route
+        if launches != {"embedding_bag": F_ * forwards} \
+                or routes["narrow"] != F_ * forwards:
             raise AssertionError(f"dlrm: {forwards} forwards launched "
-                                 f"{launches}, expected embedding_bag "
-                                 f"{F_ * forwards} times and nothing else")
+                                 f"{launches} (embedding_bag by route "
+                                 f"{routes}), expected embedding_bag "
+                                 f"{F_ * forwards} times on the narrow "
+                                 f"route and nothing else")
         launched.append(F_ * forwards)
         return out
 
@@ -2746,7 +2881,9 @@ def run_dlrm(counters: dict) -> dict:
     result = dict(arch="dlrm-rm2", tables=F_, rows=sum(cfg.vocab_sizes),
                   embed_dim=cfg.embed_dim, params=n_params,
                   param_bytes=param_bytes, init_s=init_s, peak_gb=peak / 1e9,
-                  cells=cells, embedding_bag_launches=sum(launched))
+                  cells=cells, embedding_bag_launches=sum(launched),
+                  embedding_bag_launches_by_route={"narrow": sum(launched),
+                                                   "span": 0})
     for c in cells:
         log(f"dlrm-rm2 {c['cell']}: {c['ms']:.3f} ms ({c['items_per_s']:.0f} "
             f"items/s), relative L2 against embedding_bag_ref "
@@ -2850,6 +2987,11 @@ def main() -> int:
         r["arch"]: r["launches"]["flash_attention"] for r in moe_lms}
     bag_by_path = {"gp-m": launches["embedding_bag"],
                    "dlrm-rm2": dlrm["embedding_bag_launches"]}
+    pnm = next(s for s in sessions if s["workload"] == "gp-m")
+    bag_routes = pnm["launches_by_route"].get("embedding_bag", {})
+    bag_by_route = {r: bag_routes.get(r, 0)
+                    + dlrm["embedding_bag_launches_by_route"][r]
+                    for r in ("narrow", "span")}
     launches["flash_attention"] = sum(flash_by_path.values())
     launches["embedding_bag"] = sum(bag_by_path.values())
     # segment_mm: the full engines' batches and every bootstrap counted
@@ -2909,7 +3051,6 @@ def main() -> int:
             else "tiled route",
             main_path_prev_ms=rungs[name]["prev_ms"])
     # embedding_bag at the largest rectangle the gp-m session's hops used
-    pnm = next(s for s in sessions if s["workload"] == "gp-m")
     B, hot = max(((c[0], c[3]) for c in pnm["hop_caps"]),
                  key=lambda c: c[0] * c[1])
     indeg = arxiv_in_degrees()
@@ -2926,13 +3067,17 @@ def main() -> int:
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
         shape=f"B={B} hot={hot} d=128 kept={row['kept_lanes']}",
-        launches_by_path=bag_by_path, passed=True))
+        kernel_route=row["route"], prev_ms=row["prev_ms"],
+        prev_design="span route (the PR 13 design)",
+        launches_by_route=bag_by_route, launches_by_path=bag_by_path,
+        passed=True))
     # and at DLRM-RM2's largest table, timed in phase 2
     row = next(r for r in kernel_rows if r["kernel"] == "embedding_bag"
                and r["V"] == DLRM_BAG["V"])
     kernels[-1].update(
         dlrm_shape="V={V} B={B} hot={hot} d={d} fp32".format(**DLRM_BAG),
-        ms_dlrm=row["ms"], plain_ms_dlrm=row["plain_ms"],
+        kernel_route_dlrm=row["route"], ms_dlrm=row["ms"],
+        prev_ms_dlrm=row["prev_ms"], plain_ms_dlrm=row["plain_ms"],
         bound_ms_dlrm=row["bound_ms"], bound_by_dlrm=row["bound_by"],
         library_ms_dlrm=row["library_ms"],
         max_abs_err_dlrm=row["max_abs_err"])

@@ -267,3 +267,94 @@ def test_hop_kernel_plans_take_tiled_for_the_rest(R, Din, Dh, Dout):
     if Din % 16 or Dout % 4 or Din * Dout > 50_000:
         assert delta_plan(R, Din, Dout, n_sm=132,
                           smem_limit=H100_SMEM) == {"route": "tiled"}
+
+
+# embedding_bag's routes on an H100 (132 SMs): DLRM-RM2's three cells
+# (B 262,144, 512 and 1; hot 1, d 64 fp32) and short bags of both dtypes
+# take the narrow route; gp-m's hub-wide rectangles, rows not a multiple of
+# 16 bytes or over 512, unaligned operands and bags past NARROW_MAX_HOT
+# take the span route
+@pytest.mark.parametrize("B,hot,d,bf16,want", [
+    (262_144, 1, 64, False, dict(group=16, bags=8, lanes=1, tile=16,
+                                 grid=396)),
+    (512, 1, 64, False, dict(group=16, bags=8, lanes=1, tile=16, grid=8)),
+    (1, 1, 64, False, dict(group=16, bags=8, lanes=1, tile=16, grid=1)),
+    (1001, 0, 64, False, dict(group=16, bags=8, lanes=1, tile=16, grid=16)),
+    (262_144, 1, 64, True, dict(group=8, bags=4, lanes=1, tile=16,
+                                grid=528)),
+    (1001, 16, 64, True, dict(group=8, bags=1, lanes=8, tile=4, grid=63)),
+    (2048, 4, 128, False, dict(group=32, bags=2, lanes=4, tile=2, grid=256)),
+    (2048, 4, 128, True, dict(group=16, bags=1, lanes=4, tile=2, grid=256)),
+    (1001, 3, 40, False, dict(group=16, bags=2, lanes=4, tile=4, grid=63)),
+    (100, 2, 4, False, dict(group=1, bags=1, lanes=2, tile=32, grid=1))])
+def test_embedding_bag_kernel_plan_narrow(B, hot, d, bf16, want):
+    from repro_torch.kernels.embedding_bag.ops import kernel_plan
+    assert kernel_plan(B, hot, d, bf16, n_sm=132) == dict(route="narrow",
+                                                          **want)
+
+
+@pytest.mark.parametrize("B,hot,d,bf16,aligned,spans", [
+    (2048, 262_144, 128, False, True, 64),   # gp-m's largest rectangle
+    (2048, 4096, 128, False, True, 1),
+    (16, 1, 5, False, True, 1),              # a row of 20 bytes
+    (16, 1, 12, True, True, 1),              # a row of 24 bytes
+    (16, 1, 256, False, True, 1),            # a row of 1024 bytes
+    (262_144, 1, 64, False, False, 1),       # operands not 16-byte aligned
+    (16, 4097, 64, False, True, 2)])
+def test_embedding_bag_kernel_plan_span(B, hot, d, bf16, aligned, spans):
+    from repro_torch.kernels.embedding_bag.ops import kernel_plan
+    assert kernel_plan(B, hot, d, bf16, n_sm=132, aligned=aligned) \
+        == {"route": "span", "spans": spans}
+
+
+def test_embedding_bag_kernel_plan_bounds_hot():
+    """Bags up to NARROW_MAX_HOT lanes take the narrow route, one lane more
+    the span route."""
+    from repro_torch.kernels.embedding_bag import ops
+    top = ops.NARROW_MAX_HOT
+    assert ops.kernel_plan(4096, top, 64, False, n_sm=132)["route"] \
+        == "narrow"
+    assert ops.kernel_plan(4096, top + 1, 64, False, n_sm=132)["route"] \
+        == "span"
+
+
+# every row of 16-512 bytes in steps of 16 that fp32 d 4-128 and bf16 d
+# 8-256 give, a few of each: ragged vector counts (3, 5, 10, 25) included
+NARROW_ROWS = [(d, False) for d in (4, 8, 12, 16, 20, 40, 64, 100, 128)] \
+    + [(d, True) for d in (8, 16, 24, 40, 64, 200, 256)]
+
+
+@pytest.mark.parametrize("d,bf16", NARROW_ROWS)
+@pytest.mark.parametrize("B", [1, 33, 1001, 262_144])
+@pytest.mark.parametrize("hot", [0, 1, 3, 8, 256])
+def test_embedding_bag_narrow_plan_covers_rows_and_bags(d, bf16, B, hot):
+    """A group holds the row's 16-byte vectors (a power of two, at most a
+    warp); a thread keeps the lanes of a bag in flight up to NARROW_LANES
+    and NARROW_LOADS row loads in all over several bags; a warp tile holds
+    at most 32 bags; the grid's warps cover every tile or fill 3-4 blocks
+    on every SM."""
+    from repro_torch.kernels.embedding_bag import ops
+    row = d * (2 if bf16 else 4)
+    assert row % 16 == 0 and 16 <= row <= 512
+    plan = ops.narrow_plan(B, hot, d, bf16, n_sm=132)
+    G, u, w, tile, grid = (plan[k] for k in ("group", "bags", "lanes",
+                                             "tile", "grid"))
+    loads, lanes = ops.NARROW_LOADS[bf16], ops.NARROW_LANES[bf16]
+    assert G & (G - 1) == 0 and G <= 32 and G * 16 >= row > G * 8
+    assert w & (w - 1) == 0 and w == min(lanes, max(hot, 1)) \
+        or hot == 3 and w == 4
+    assert 1 <= u and (u * w <= loads or u == 1)
+    assert tile == 32 // G * u <= 32
+    assert 1 <= grid <= 132 * ops.NARROW_BLOCKS_PER_SM
+    assert grid * ops.NARROW_WARPS * tile >= B or grid >= 132 * 3
+
+
+def test_embedding_bag_refuses_non_cpu_non_cuda_tensors():
+    """Operands neither all on the CPU nor on a CUDA device are refused and
+    counted on no route."""
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    before = dict(embedding_bag.launches_by_route)
+    with pytest.raises(ValueError, match="CUDA"):
+        embedding_bag(torch.zeros(10, 8, device="meta"),
+                      torch.zeros(4, 1, dtype=torch.int32, device="meta"))
+    assert embedding_bag.launches_by_route == before

@@ -2,7 +2,10 @@
 at the shapes of tests/test_kernels.py plus main-path shapes, with its
 bars: 1e-5 on S' and 1e-4 on h; extremum_apply's S' bit-equal, on both of
 its routes; delta_apply's and mlp_apply's S' bit-equal and reruns
-bit-equal on both routes (resident and tiled), at ragged row counts; embedding_bag 1e-5 in fp32 and 2e-2 in bf16; segment_mm 2e-5
+bit-equal on both routes (resident and tiled), at ragged row counts;
+embedding_bag 1e-5 in fp32 and 2e-2 in bf16 on both routes (narrow and
+span), reruns and the two routes bit-equal on bags of one span, a
+one-lane bag bit-equal to its row, each route counted; segment_mm 2e-5
 in fp32 and 2e-2 in bf16, 1e-5 of the sum of the terms' magnitudes on a
 hub row, bit-equal reruns, and its partition kernels equal to the plain
 partition; embedding_bag's one-lane bags over DLRM-sized tables (past
@@ -24,6 +27,7 @@ from repro_torch.kernels.delta_apply import delta_apply
 from repro_torch.kernels.delta_apply import ops as delta_ops
 from repro_torch.kernels.delta_apply.ref import delta_apply_ref
 from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.extremum_apply import extremum_apply
 from repro_torch.kernels.extremum_apply.ops import device_limits, kernel_plan
@@ -415,6 +419,106 @@ def test_embedding_bag_one_lane_over_a_large_table_on_card(cuda, V, B):
     assert embedding_bag.launches == before + 1
     assert torch.equal(out, ref)
     assert torch.equal(out[1], table[V - 1])
+
+
+def _bag_case(rng, cuda, V, B, hot, d, dtype, pad_share=0.0):
+    """A table and [B, hot] ids; with pad_share, that share of the lanes
+    is the padding row V (a zero row appended to the table)."""
+    table = np.concatenate([_rand(rng, V, d), np.zeros((1, d), np.float32)])
+    idx = rng.integers(0, V, size=(B, hot)).astype(np.int32)
+    idx[rng.random((B, hot)) < pad_share] = V
+    return (torch.as_tensor(table, device=cuda).to(dtype),
+            torch.as_tensor(idx, device=cuda))
+
+
+def _bag_held(table, idx, pad, route, plan):
+    """The wrapper takes ``route`` (kernel_plan's) and counts it; within
+    1e-5 (fp32) or 2e-2 (bf16) of the plain version, a rerun bit-equal,
+    and ``plan`` launched through ops.launch bit-equal to the wrapper
+    (both routes sum a bag of one span in the same order)."""
+    before = dict(embedding_bag.launches_by_route)
+    out = embedding_bag(table, idx, padding_idx=pad)
+    again = embedding_bag(table, idx, padding_idx=pad)
+    forced = torch.empty_like(out)
+    bag_ops.launch(plan, table, idx, forced, pad)
+    ref = embedding_bag_ref(table, idx, pad)
+    torch.cuda.synchronize()
+    assert _counted(embedding_bag.launches_by_route, before) == {route: 2}
+    tol = 2e-2 if table.dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert torch.equal(out, again) and torch.equal(out, forced)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", [0, 1, 2, 3, 5, 8, 16])
+@pytest.mark.parametrize("d", [8, 40, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_narrow_route_on_card(cuda, hot, d, dtype):
+    """Short bags take the narrow route (B 1001 leaves the last warp tile
+    part-filled), equal bit for bit to the span route; a one-lane bag is
+    its row, bit for bit."""
+    rng = np.random.default_rng(hot * 1000 + d)
+    V, B = 5000, 1001
+    table, idx = _bag_case(rng, cuda, V, B, hot, d, dtype)
+    bf16 = dtype == torch.bfloat16
+    n_sm = device_limits(cuda.index or 0)[0]
+    plan = bag_ops.kernel_plan(B, hot, d, bf16, n_sm)
+    assert plan["route"] == "narrow"
+    out = _bag_held(table, idx, None, "narrow", bag_ops.span_plan(hot))
+    if hot == 1:
+        assert torch.equal(out, table[idx[:, 0].long()])
+    if hot == 0:
+        assert not out.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", [4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_narrow_route_padding_on_card(cuda, hot, dtype):
+    """Half the lanes padding (the zero row V): skipped as padding_idx or
+    summed, the narrow route matches the plain version and the span
+    route."""
+    rng = np.random.default_rng(hot)
+    V, B, d = 3000, 777, 64
+    table, idx = _bag_case(rng, cuda, V, B, hot, d, dtype, pad_share=0.5)
+    span = bag_ops.span_plan(hot)
+    for pad in (V, None):
+        _bag_held(table, idx, pad, "narrow", span)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,hot,d,dtype,shift", [
+    (300, 4, 5, torch.float32, 0),       # a row of 20 bytes
+    (300, 4, 12, torch.bfloat16, 0),     # a row of 24 bytes
+    (300, 4, 256, torch.float32, 0),     # a row of 1024 bytes
+    (300, 4, 64, torch.float32, 1),      # the table 4 bytes off 16
+    (300, bag_ops.NARROW_MAX_HOT + 1, 64, torch.float32, 0),
+    (40, 5000, 64, torch.bfloat16, 0)])  # two spans
+def test_embedding_bag_span_route_on_card(cuda, B, hot, d, dtype, shift):
+    """What the narrow route does not take goes to the span route, counted
+    there, against the plain version (a bag of two spans to 1e-5 of its
+    plain sum, so only rerun- and route-equal where it is one span)."""
+    rng = np.random.default_rng(B + hot + d)
+    table, idx = _bag_case(rng, cuda, 2000, B, hot, d, dtype)
+    if shift:
+        store = torch.empty(table.numel() + shift, dtype=dtype, device=cuda)
+        store[shift:].copy_(table.flatten())
+        table = store[shift:].view(table.shape)
+    plan = bag_ops.kernel_plan(B, hot, d, dtype == torch.bfloat16,
+                               device_limits(cuda.index or 0)[0],
+                               table.data_ptr() % 16 == 0)
+    assert plan["route"] == "span"
+    if plan["spans"] == 1:
+        _bag_held(table, idx, None, "span", plan)
+        return
+    before = dict(embedding_bag.launches_by_route)
+    out = embedding_bag(table, idx)
+    torch.cuda.synchronize()
+    assert _counted(embedding_bag.launches_by_route, before) == {"span": 1}
+    torch.testing.assert_close(out.float(),
+                               embedding_bag_ref(table, idx).float(),
+                               atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda
