@@ -154,6 +154,28 @@ on its narrow route, and nothing else, outputs (and losses) within
 relative L2 1e-5 of the same functions with embedding_bag_ref; ms,
 items/s and peak GB.  Each model
 is freed before the next.
+Phase 8 trains.  (a) qwen2-1.5b at its published size (28 layers, d_model
+1536, 12 query heads over 2 kv heads of 128, ff 8960, vocab 151,936,
+tied embeddings; 1.54 B bf16 parameters from a seed, AdamW with fp32
+moments, remat "nothing") takes 2 warm-up and 6 timed steps of
+``make_train_step`` on one fixed 4 x 2048 batch of the Zipf-plus-copy
+corpus (repro_torch/examples/train_lm.py): flash_attention must launch
+56 times a step (the 28 forward and their 28 remat recomputes), all on
+the wgmma route, and no other kernel; the loss must fall.  It prints ms
+a step, tokens/s, model TFLOP/s (6 N tokens), peak GB, one profiled
+step's device busy share and one step split by CUDA events into
+forward, backward and optimizer (every gradient finite).  (b) The
+gradient with the kernel (FlashAttentionFn) against the same loss with
+the plain attention under autograd: at full depth in bf16 (loss 1e-2,
+each leaf relative L2 5e-2) and at 2 layers in fp32 on B 2 x S 1024 (the
+mma route; 1e-5, 1e-4).  (c) DLRM-RM2's train_batch (B 65,536, 12.77 GB
+of tables, uniform ids, Bernoulli(0.5) labels, AdamW at lr 1e-3): one
+batch's loss and gradients against embedding_bag_ref (1e-5) before the
+optimizer state exists, then 2 warm-up and 5 timed steps, every
+embedding_bag launch (26 a step) narrow and nothing else; ms a step,
+items/s, model TFLOP/s, peak GB and the split.  (d) olmoe-1b-7b at its
+published width, depth cut to 2: one bf16 AdamW step on 4 x 2048 tokens,
+the loss and every gradient finite, the router's gradient non-zero.
 
 Phase 1 prints ptxas's registers and spills for every kernel
 instantiation; a spill in a hop kernel fails the run.  Any fault ends the
@@ -161,7 +183,8 @@ run with a traceback and a non-zero exit; nothing is caught.  Without a
 CUDA card, or without the repository beside this file, it exits non-zero before printing any result.  Output ends with the run's
 seconds, the card line (nvidia-smi's name and power limit), the kernels
 JSON line (each kernel's launches with flash_attention's and
-embedding_bag's by route and by path) and the device JSON line.
+embedding_bag's by route and by path, the training paths among them) and
+the device JSON line.
 
 Precision: TF32 is off for matmuls and cuDNN, so the SAGE self term, the
 bootstrap, the oracle and the LM's fp32 checks run in full fp32, as the
@@ -174,6 +197,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import random
 import shutil
@@ -259,6 +283,29 @@ BAG_SWEEP = dict(hot=(1, 2, 4, 8, 16, 32, 64, 256), B=(512, 262_144),
 # with embedding_bag_ref: fp32 sums of one row each, so only the MLPs'
 # summation order is left
 DLRM_BAR = 1e-5
+# phase 8: training.  qwen2-1.5b at its published size (bf16, AdamW, remat
+# "nothing") on one fixed batch of the Zipf-plus-copy corpus at phase 4's
+# prompt shape; its gradient held against the plain attention at full
+# depth in bf16 and at the published width cut to 2 layers in fp32 (the
+# mma route) on B 2 x S 1024.  lr 1e-5, a rate of a warm-up's first steps:
+# at 3e-4 without warm-up the loss of this init (the tied embedding's
+# logits have a std of ~39, loss 124) rose over the first 4 steps of the
+# batch, to 444, before it fell (NVIDIA H100 80GB HBM3, 700 W)
+TRAIN = dict(arch="qwen2-1.5b", batch=4, seq=2048, lr=1e-5, warmup=2,
+             timed=6, fp32=dict(n_layers=2, batch=2, seq=1024))
+# relative bars, kernel path against the plain attention: fp32 the same
+# function summed in another order; bf16 phase 4's bar (LM_BARS) on the
+# gradients, the loss within 1e-2
+TRAIN_BARS = {"bfloat16": dict(loss=1e-2, grad=5e-2),
+              "float32": dict(loss=1e-5, grad=1e-4)}
+# DLRM-RM2's train_batch cell (src/repro/configs/dlrm_rm2.py:127) and the
+# reference's step (AdamW at lr 1e-3, :66-70); the gradient with the kernel
+# against embedding_bag_ref: fp32 sums of one row a bag, so only the
+# gradient's summation order is left
+DLRM_TRAIN = dict(batch=65_536, lr=1e-3, warmup=2, timed=5)
+DLRM_TRAIN_BAR = 1e-5
+# olmoe-1b-7b's MoE backward at its published width, 16 layers cut to 2
+MOE_TRAIN = dict(arch="olmoe-1b-7b", cut={"n_layers": 2}, batch=4, seq=2048)
 
 
 def log(*parts) -> None:
@@ -1633,37 +1680,40 @@ def generate(prefill, decode, params, prompts, n_tokens: int):
     return torch.stack(out, 1), step_logits, prefill_ms, step_ms
 
 
-def profile_lm(prefill, decode, params, prompts, n_steps: int) -> dict:
-    """One prefill and ``n_steps`` decode steps under torch.profiler: each
-    one's device busy share (device time over wall time, which the
-    profiler's own host cost inflates) and device operations, and the
-    flash_attention kernel's share of the prefill's device time."""
+def device_window(fn) -> dict:
+    """``fn`` once under torch.profiler: its device busy share (device time
+    over wall time, which the profiler's own host cost inflates), device
+    operations, the flash_attention kernels' share of the device time and
+    the six kernels that took the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) * 1e-6
+    # the flash_attention kernels: flash_kernel_sm90 (wgmma route) and
+    # flash_kernel (mma route)
+    attn = sum(e.self_device_time_total for e in dev
+               if "flash_kernel" in e.key) * 1e-6
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy * 1e3,
+                device_busy_share=busy / wall if dev else None,
+                device_ops=sum(e.count for e in dev),
+                attention_share=attn / busy if busy else None,
+                top=[[e.key[:60], e.self_device_time_total / 1e3,
+                      e.count] for e in top])
 
-    def window(fn):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in dev) * 1e-6
-        # the flash_attention kernels: flash_kernel_sm90 (wgmma route) and
-        # flash_kernel (mma route)
-        attn = sum(e.self_device_time_total for e in dev
-                   if "flash_kernel" in e.key) * 1e-6
-        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
-        return dict(wall_ms=wall * 1e3, device_busy_ms=busy * 1e3,
-                    device_busy_share=busy / wall if dev else None,
-                    device_ops=sum(e.count for e in dev),
-                    attention_share=attn / busy if busy else None,
-                    top=[[e.key[:60], e.self_device_time_total / 1e3,
-                          e.count] for e in top])
 
+def profile_lm(prefill, decode, params, prompts, n_steps: int) -> dict:
+    """One prefill and ``n_steps`` decode steps under torch.profiler
+    (:func:`device_window`): the busy share, device operations and the
+    flash_attention kernel's share of the prefill's device time."""
     S = prompts.shape[1]
     state = {}
 
@@ -1681,8 +1731,8 @@ def profile_lm(prefill, decode, params, prompts, n_steps: int) -> dict:
     torch.cuda.synchronize()
     run_decode()            # warm the decode path outside the window
     run_prefill()
-    return dict(prefill=window(run_prefill),
-                decode=dict(steps=n_steps, **window(run_decode)))
+    return dict(prefill=device_window(run_prefill),
+                decode=dict(steps=n_steps, **device_window(run_decode)))
 
 
 def run_lm(counters: dict) -> dict:
@@ -2894,6 +2944,384 @@ def run_dlrm(counters: dict) -> dict:
     return result
 
 
+# ---- phase 8: training ------------------------------------------------------
+def named_leaves(tree, prefix: str = "") -> list:
+    """(path, tensor) of every leaf, in ``tree_flatten`` order (dict keys
+    sorted, lists in order)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in named_leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for i, sub in enumerate(tree)
+                for leaf in named_leaves(sub, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def grads_against(got, want) -> tuple[float, str]:
+    """The largest relative L2 over the leaves of two gradient trees, and
+    the leaf it is at."""
+    worst = (0.0, "")
+    for (path, a), (_, b) in zip(named_leaves(got), named_leaves(want)):
+        a, b = a.double(), b.double()
+        err = ((a - b).norm() / b.norm().clamp(min=1e-300)).item()
+        worst = max(worst, (err, path))
+    return worst
+
+
+def all_finite(tree) -> bool:
+    return all(bool(torch.isfinite(t).all()) for _, t in named_leaves(tree))
+
+
+def split_step(loss_of, params, update) -> dict:
+    """One train step taken apart and timed with CUDA events: forward (the
+    loss under autograd, on detached aliases of ``params``), backward
+    (``torch.autograd.grad`` of every leaf, the remat recompute and the
+    kernels' backwards inside), optimizer (``update(grads)``: the step's
+    clipping and optimizer, in place).  Returns the three device ms, the
+    loss and whether every gradient was finite."""
+    from repro_torch.ckpt.checkpoint import tree_flatten, tree_unflatten
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    leaves = [p.detach().requires_grad_() for p in tree_flatten(params)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    with torch.enable_grad():
+        loss = loss_of(tree_unflatten(params, leaves))
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    ev[2].record()
+    grads = tree_unflatten(params, list(grads))
+    update(grads)
+    ev[3].record()
+    torch.cuda.synchronize()
+    # clipping scales by a finite factor: finite after iff finite before
+    return dict(forward_ms=ev[0].elapsed_time(ev[1]),
+                backward_ms=ev[1].elapsed_time(ev[2]),
+                optimizer_ms=ev[2].elapsed_time(ev[3]),
+                loss=float(loss.detach()), grads_finite=all_finite(grads))
+
+
+def train_batch(seed: int, batch: int, seq: int, vocab: int) -> torch.Tensor:
+    """One batch of the Zipf-plus-copy corpus of
+    repro_torch/examples/train_lm.py, drawn from ``seed``."""
+    import numpy as np
+    from repro_torch.examples.train_lm import sample_batch
+    return torch.as_tensor(sample_batch(np.random.default_rng(seed), batch,
+                                        seq, vocab), device=DEVICE)
+
+
+def run_lm_train(counters: dict) -> dict:
+    """Phase 8 (a, b): qwen2-1.5b at its published size trains on one
+    fixed batch (TRAIN): the launch counts set to 0 before the warm-up and
+    timed steps of ``make_train_step`` and read after them --
+    flash_attention twice a layer a step (the forward and the remat
+    recompute), all on the wgmma route, and no other kernel -- host ms a
+    step, tokens/s, model TFLOP/s (6 N tokens), peak GB; one profiled
+    step (device busy share) and one step split into forward, backward
+    and optimizer by CUDA events (every gradient finite); the loss must
+    fall.  Then (b) the gradients with the kernel against the same loss
+    with the plain attention under autograd: at full depth in bf16, and
+    at the published width cut to TRAIN["fp32"]'s layers in fp32 (the mma
+    route), one side after the other, without the optimizer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.lm import model, steps
+    from repro_torch.train import (adamw_update, clip_by_global_norm,
+                                   value_and_grad)
+    cfg = get_arch(TRAIN["arch"]).CONFIG
+    if (cfg.param_dtype, cfg.remat_policy, cfg.optimizer) != (
+            "bfloat16", "nothing", "adamw"):
+        raise AssertionError(f"{cfg.name}: not the published bf16 AdamW "
+                             f"config with remat 'nothing'")
+    B, S, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = model.init_params(gen, cfg, DEVICE)
+    n_params, param_bytes = tree_size(params)
+    tokens = train_batch(0, B, S, cfg.vocab)
+    opt = steps.init_opt_state(cfg, params)
+    step = steps.make_train_step(cfg, lr=lr)
+    n_steps = TRAIN["warmup"] + TRAIN["timed"]
+
+    # ---- the main path: warm-up and timed steps --------------------------
+    flash = counters["flash_attention"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    losses, step_ms = [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, tokens)
+        torch.cuda.synchronize()
+        if i >= TRAIN["warmup"]:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    routes = dict(flash.launches_by_route)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = 2 * cfg.n_layers
+    if launches["flash_attention"] != per_step * n_steps \
+            or routes["wgmma"] != launches["flash_attention"] \
+            or sum(launches.values()) != launches["flash_attention"]:
+        raise AssertionError(f"train {cfg.name}: {n_steps} steps launched "
+                             f"{launches} (flash_attention by route "
+                             f"{routes}); expected flash_attention "
+                             f"{per_step} times a step, all wgmma, and no "
+                             f"other kernel")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train {cfg.name}: the loss did not fall: "
+                             f"{losses}")
+    profiled = device_window(lambda: step(params, opt, tokens))
+
+    def update(grads):
+        clip_by_global_norm(grads, 1.0)
+        adamw_update(grads, opt, params, lr=lr)
+
+    split = split_step(lambda p: steps.loss_fn(p, cfg, tokens)[0], params,
+                       update)
+    if not split["grads_finite"]:
+        raise AssertionError(f"train {cfg.name}: a gradient is not finite")
+    del opt
+    torch.cuda.empty_cache()
+
+    # ---- (b) the gradient against the plain attention ---------------------
+    grad_fn = value_and_grad(steps.loss_fn, has_aux=True)
+
+    def held(cfg_, params_, toks, dtype):
+        (lk, _), gk = grad_fn(params_, cfg_, toks)
+        (lp, _), gp = grad_fn(params_, cfg_, toks,
+                              attention=flash_attention_ref)
+        err, leaf = grads_against(gk, gp)
+        out = dict(dtype=dtype, layers=cfg_.n_layers,
+                   batch=toks.shape[0], seq=toks.shape[1],
+                   loss=float(lk), loss_plain=float(lp),
+                   loss_rel=abs(float(lk) - float(lp)) / abs(float(lp)),
+                   grad_rel_l2=err, worst_leaf=leaf,
+                   finite=all_finite(gk) and all_finite(gp))
+        bars = TRAIN_BARS[dtype]
+        if out["loss_rel"] > bars["loss"] or err > bars["grad"] \
+                or not out["finite"]:
+            raise AssertionError(f"train {cfg_.name} {dtype}: kernel "
+                                 f"against plain attention {out}, bars "
+                                 f"{bars}")
+        return out
+
+    bf16 = held(cfg, params, tokens, "bfloat16")
+    del params
+    torch.cuda.empty_cache()
+    f = TRAIN["fp32"]
+    cfg32 = dataclasses.replace(cfg, n_layers=f["n_layers"],
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    params = model.init_params(torch.Generator(device=DEVICE).manual_seed(1),
+                               cfg32, DEVICE)
+    reset_counts(counters)
+    fp32 = held(cfg32, params, tokens[:f["batch"], :f["seq"]].contiguous(),
+                "float32")
+    if flash.launches_by_route["mma"] != 2 * cfg32.n_layers:
+        raise AssertionError(f"train fp32: flash_attention by route "
+                             f"{flash.launches_by_route}, expected "
+                             f"{2 * cfg32.n_layers} on the mma route")
+    del params
+    torch.cuda.empty_cache()
+
+    ms = statistics.median(step_ms)
+    flops = 6.0 * n_params * B * S
+    result = dict(
+        arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim,
+        d_ff=cfg.d_ff, vocab=cfg.vocab, dtype=cfg.param_dtype,
+        optimizer=cfg.optimizer, remat=cfg.remat_policy, batch=B, seq=S,
+        lr=lr, params=n_params, param_bytes=param_bytes,
+        resident_gb_before=resident / 1e9, steps=n_steps,
+        launches=launches, flash_routes=routes,
+        flash_launches_per_step=launches["flash_attention"] / n_steps,
+        step_ms=ms, step_ms_all=step_ms, tokens_per_s=B * S / (ms * 1e-3),
+        model_tflop=flops / 1e12,
+        model_tflop_per_s=flops / (ms * 1e-3) / 1e12, peak_gb=peak / 1e9,
+        losses=losses, profiled=profiled, split=split, held_bf16=bf16,
+        held_fp32=fp32)
+    log(f"train {cfg.name}: {n_params} parameters, {B} x {S} tokens, "
+        f"{ms:.3f} ms a step ({result['tokens_per_s']:.0f} tokens/s, "
+        f"{result['model_tflop_per_s']:.1f} model TFLOP/s), peak "
+        f"{peak / 1e9:.3f} GB; device busy {profiled['device_busy_share']:.3f}"
+        f"; split forward {split['forward_ms']:.3f} / backward "
+        f"{split['backward_ms']:.3f} / optimizer {split['optimizer_ms']:.3f}"
+        f" ms; flash_attention {result['flash_launches_per_step']:.0f} "
+        f"launches a step ({routes}); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    log(f"train {cfg.name} kernel vs plain attention: bf16 {bf16}; fp32 "
+        f"{fp32}")
+    log("train_lm_session", json.dumps(result))
+    return result
+
+
+def run_dlrm_train(counters: dict) -> dict:
+    """Phase 8 (c): DLRM-RM2's train_batch at its published size (26
+    tables, 12.77 GB fp32; B 65,536; uniform ids, Bernoulli(0.5) labels;
+    AdamW at lr 1e-3, the reference's step).  First one batch's loss and
+    gradients with the kernel held against the same with embedding_bag_ref
+    (DLRM_TRAIN_BAR), before the optimizer state exists; then the launch
+    counts set to 0 before the warm-up and timed steps of
+    ``make_train_step`` and read after: embedding_bag 26 times a step, all
+    narrow, and nothing else.  Host ms a step, items/s, model TFLOP/s,
+    peak GB and one step split into forward, backward and optimizer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.dlrm_rm2 import dlrm_model_flops, make_train_step
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.models.recsys.dlrm import dlrm_loss, init_dlrm
+    from repro_torch.train import adamw_init, adamw_update, value_and_grad
+    cfg = get_arch("dlrm-rm2").CONFIG
+    B, lr = DLRM_TRAIN["batch"], DLRM_TRAIN["lr"]
+    F_ = cfg.n_sparse
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    params = init_dlrm(gen, cfg, device=DEVICE)
+    n_params, param_bytes = tree_size(params)
+    dense = torch.randn((B, cfg.n_dense), generator=gen, device=DEVICE)
+    idx = torch.stack([torch.randint(0, v, (B, cfg.multi_hot), generator=gen,
+                                     device=DEVICE)
+                       for v in cfg.vocab_sizes], 1).to(torch.int32)
+    labels = torch.bernoulli(torch.full((B,), 0.5, device=DEVICE),
+                             generator=gen)
+
+    # ---- one batch's gradient against the plain bags ---------------------
+    bag = counters["embedding_bag"]
+    reset_counts(counters)
+    lk, gk = value_and_grad(dlrm_loss)(params, cfg, dense, idx, labels)
+    if bag.launches_by_route["narrow"] != F_ or bag.launches != F_:
+        raise AssertionError(f"dlrm train: the held forward launched "
+                             f"embedding_bag {bag.launches_by_route}")
+    lp, gp = value_and_grad(
+        lambda p, *a: dlrm_loss(p, *a, bag=embedding_bag_ref))(
+        params, cfg, dense, idx, labels)
+    err, leaf = grads_against(gk, gp)
+    held = dict(loss=float(lk), loss_plain=float(lp),
+                loss_rel=abs(float(lk) - float(lp)) / abs(float(lp)),
+                grad_rel_l2=err, worst_leaf=leaf,
+                finite=all_finite(gk) and all_finite(gp))
+    del gk, gp
+    torch.cuda.empty_cache()
+    if held["loss_rel"] > DLRM_TRAIN_BAR or err > DLRM_TRAIN_BAR \
+            or not held["finite"]:
+        raise AssertionError(f"dlrm train: kernel against plain bags "
+                             f"{held}, bar {DLRM_TRAIN_BAR}")
+
+    # ---- the main path: warm-up and timed steps --------------------------
+    opt = adamw_init(params)
+    step = make_train_step(cfg, lr=lr)
+    n_steps = DLRM_TRAIN["warmup"] + DLRM_TRAIN["timed"]
+    reset_counts(counters)
+    losses, step_ms = [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, dense, idx, labels)
+        torch.cuda.synchronize()
+        if i >= DLRM_TRAIN["warmup"]:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    routes = dict(bag.launches_by_route)
+    if launches != {"embedding_bag": F_ * n_steps} \
+            or routes["narrow"] != F_ * n_steps:
+        raise AssertionError(f"dlrm train: {n_steps} steps launched "
+                             f"{launches} (embedding_bag by route {routes}), "
+                             f"expected embedding_bag {F_} times a step on "
+                             f"the narrow route and nothing else")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"dlrm train: losses {losses}")
+    split = split_step(lambda p: dlrm_loss(p, cfg, dense, idx, labels),
+                       params, lambda g: adamw_update(g, opt, params, lr=lr))
+    peak = torch.cuda.max_memory_allocated()
+    if not split["grads_finite"]:
+        raise AssertionError("dlrm train: a gradient is not finite")
+    del params, opt
+    torch.cuda.empty_cache()
+
+    ms = statistics.median(step_ms)
+    flops = dlrm_model_flops(cfg, B, "train")
+    result = dict(
+        arch="dlrm-rm2", cell="train_batch", batch=B, tables=F_,
+        rows=sum(cfg.vocab_sizes), params=n_params, param_bytes=param_bytes,
+        resident_gb_before=resident / 1e9, lr=lr, steps=n_steps,
+        launches=launches, bag_routes=routes, step_ms=ms,
+        step_ms_all=step_ms, items_per_s=B / (ms * 1e-3),
+        model_tflop_per_s=flops / (ms * 1e-3) / 1e12, peak_gb=peak / 1e9,
+        losses=losses, split=split, held=held)
+    log(f"train dlrm-rm2 train_batch: {ms:.3f} ms a step "
+        f"({result['items_per_s']:.0f} items/s, "
+        f"{result['model_tflop_per_s']:.3f} model TFLOP/s), peak "
+        f"{peak / 1e9:.3f} GB; split forward {split['forward_ms']:.3f} / "
+        f"backward {split['backward_ms']:.3f} / optimizer "
+        f"{split['optimizer_ms']:.3f} ms; against plain bags {held}")
+    log("train_dlrm_session", json.dumps(result))
+    return result
+
+
+def run_moe_train(counters: dict) -> dict:
+    """Phase 8 (d): olmoe-1b-7b at its published width, depth cut to
+    MOE_TRAIN's, one bf16 step with AdamW (the train step's body: the
+    gradient, clipping, AdamW) on 4 x 2048 tokens: the loss and every
+    gradient finite, the router's gradient non-zero (the MoE backward:
+    index_copy_, the sort, the gather), flash_attention twice a layer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model, steps
+    from repro_torch.train import (adamw_update, clip_by_global_norm,
+                                   value_and_grad)
+    full = get_arch(MOE_TRAIN["arch"]).CONFIG
+    cfg = cut_config(full, MOE_TRAIN["cut"])
+    B, S = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(torch.Generator(device=DEVICE).manual_seed(3),
+                               cfg, DEVICE)
+    tokens = train_batch(3, B, S, cfg.vocab)
+    opt = steps.init_opt_state(cfg, params)
+    flash = counters["flash_attention"]
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (total, metrics), grads = value_and_grad(steps.loss_fn, has_aux=True)(
+        params, cfg, tokens)
+    finite = all_finite(grads)
+    router = float(grads["moe_blocks"]["mlp"]["router"].abs().sum())
+    clip_by_global_norm(grads, 1.0)
+    adamw_update(grads, opt, params, lr=TRAIN["lr"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    routes = dict(flash.launches_by_route)
+    peak = torch.cuda.max_memory_allocated()
+    cut = MOE_TRAIN["cut"]
+    result = dict(arch=cfg.name, reduced={k: f"{getattr(full, k)} -> {v}"
+                                          for k, v in cut.items()},
+                  batch=B, seq=S, loss=float(metrics["loss"]),
+                  aux=float(metrics["aux"]), total=float(total),
+                  grads_finite=finite, router_grad_abs_sum=router,
+                  launches=launches, flash_routes=routes, ms=ms,
+                  peak_gb=peak / 1e9)
+    del params, opt, grads
+    torch.cuda.empty_cache()
+    log(f"train {cfg.name} ({cfg.n_layers} layers): {result}")
+    log("train_moe_session", json.dumps(result))
+    if not (finite and math.isfinite(result["total"]) and router > 0):
+        raise AssertionError(f"train {cfg.name}: {result}")
+    if launches != {"flash_attention": 2 * cfg.n_layers} \
+            or routes["wgmma"] != 2 * cfg.n_layers:
+        raise AssertionError(f"train {cfg.name}: launched {launches} "
+                             f"({routes}), expected flash_attention "
+                             f"{2 * cfg.n_layers} times, all wgmma")
+    return result
+
+
 def prepare() -> tuple[str, dict]:
     """Phase 1: checks that a card and the port are there, turns TF32 off,
     builds the kernels (printing ptxas's registers and spills) and returns
@@ -2981,16 +3409,28 @@ def main() -> int:
     moe_lms = [run_moe_lm(counters, arch) for arch in MOE_LMS]
     dlrm = run_dlrm(counters)
 
+    # ---- phase 8: training -----------------------------------------------
+    t_train = time.perf_counter()
+    lm_train = run_lm_train(counters)
+    dlrm_train = run_dlrm_train(counters)
+    moe_train = run_moe_train(counters)
+    log(f"phase8: {time.perf_counter() - t_train:.1f} s")
+
     launches = {name: sum(s["launches"][name] for s in sessions)
                 for name in counters}
     flash_by_path = {lm["arch"]: lm["launches"]["flash_attention"]} | {
-        r["arch"]: r["launches"]["flash_attention"] for r in moe_lms}
+        r["arch"]: r["launches"]["flash_attention"] for r in moe_lms} | {
+        f"{lm_train['arch']} train": lm_train["launches"]["flash_attention"],
+        f"{moe_train['arch']} train ({MOE_TRAIN['cut']['n_layers']} layers)":
+            moe_train["launches"]["flash_attention"]}
     bag_by_path = {"gp-m": launches["embedding_bag"],
-                   "dlrm-rm2": dlrm["embedding_bag_launches"]}
+                   "dlrm-rm2": dlrm["embedding_bag_launches"],
+                   "dlrm-rm2 train": dlrm_train["launches"]["embedding_bag"]}
     pnm = next(s for s in sessions if s["workload"] == "gp-m")
     bag_routes = pnm["launches_by_route"].get("embedding_bag", {})
     bag_by_route = {r: bag_routes.get(r, 0)
                     + dlrm["embedding_bag_launches_by_route"][r]
+                    + dlrm_train["bag_routes"][r]
                     for r in ("narrow", "span")}
     launches["flash_attention"] = sum(flash_by_path.values())
     launches["embedding_bag"] = sum(bag_by_path.values())
@@ -3119,7 +3559,8 @@ def main() -> int:
         library_backend=row["library_backend"],
         kernel_route=row["route"],
         launches_by_route={r: lm["flash_routes"][r] + sum(
-            m["flash_routes"][r] for m in moe_lms) for r in lm["flash_routes"]},
+            m["flash_routes"][r] for m in moe_lms + [lm_train, moe_train])
+            for r in lm["flash_routes"]},
         launches_by_path=flash_by_path,
         shape="B={B} S={S} H={H} Hkv={Hkv} Dh={Dh} bf16 causal".format(
             **PREFILL),

@@ -78,7 +78,12 @@ def tree_description(tree) -> str:
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            # numpy has no bfloat16: its 2-byte words, as the reference's
+            # files hold them (np.save writes ml_dtypes' bfloat16 as V2)
+            return t.view(torch.int16).numpy().view(np.dtype("V2"))
+        return t.numpy()
     return np.asarray(leaf)
 
 

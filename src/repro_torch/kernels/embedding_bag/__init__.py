@@ -1,1 +1,1 @@
-from .ops import embedding_bag  # noqa: F401
+from .ops import EmbeddingBagFn, embedding_bag  # noqa: F401

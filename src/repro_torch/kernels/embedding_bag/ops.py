@@ -13,7 +13,14 @@ The kernel has two routes, chosen by :func:`kernel_plan` before the launch:
   short bags), for wide bags and every other shape.
 
 A failed build or launch raises; nothing runs the plain version in its
-place."""
+place.
+
+Gradients: when grad mode is on and the table requires a gradient, the
+call goes through :class:`EmbeddingBagFn`, whose forward is the same
+launch (the plain version on the CPU) and whose backward is the bag's
+transpose in plain PyTorch, a dense ``index_add_`` into the table's
+shape -- the gradient of the reference's ``take`` + sum.  No TPU kernel
+has a backward to port."""
 from __future__ import annotations
 
 import ctypes
@@ -144,6 +151,36 @@ def launch(plan: dict, table, idx, out, padding_idx: int | None) -> None:
                            f"CUDA error {err}")
 
 
+class EmbeddingBagFn(torch.autograd.Function):
+    """The sum-mode bag whose forward is the kernel (the plain version on
+    the CPU) and whose backward is the transpose of the bag:
+    ``grad_table[idx[b, h]] += grad_out[b]`` over every lane but those
+    equal to ``padding_idx``, summed in fp32 into a dense ``[V, d]``
+    gradient (every row, as JAX's gradient of ``take``: an optimizer's
+    moments and weight decay move rows no bag read) and rounded once to
+    the table's dtype.  ``idx`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, table, idx, padding_idx):
+        ctx.save_for_backward(idx)
+        ctx.table = (table.shape, table.dtype)
+        ctx.padding_idx = padding_idx
+        return _forward(table, idx, padding_idx)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (idx,), (shape, dtype) = ctx.saved_tensors, ctx.table
+        B, hot = idx.shape
+        rows = idx.reshape(-1).long()
+        src = grad_out.float()[:, None, :].expand(B, hot, shape[1]) \
+            .reshape(B * hot, shape[1])
+        if ctx.padding_idx is not None:   # a skipped lane adds 0
+            src = torch.where((rows != ctx.padding_idx)[:, None], src, 0.0)
+        grad = torch.zeros(shape, dtype=torch.float32,
+                           device=grad_out.device).index_add_(0, rows, src)
+        return grad.to(dtype), None, None
+
+
 def embedding_bag(table, idx, padding_idx: int | None = None):
     """``out[b] = sum_h table[idx[b, h]]`` for ``idx [B, hot]`` int32 and
     ``table [V, d]`` fp32 or bf16; returns ``[B, d]`` in the table's dtype
@@ -151,9 +188,19 @@ def embedding_bag(table, idx, padding_idx: int | None = None):
     ``padding_idx`` skip the row read and add nothing.  An index outside
     ``[0, V)`` is never clamped: on the CPU it raises, on a card the kernel
     traps, which surfaces at the next synchronisation.
+    With grad mode on and a table that requires a gradient it goes through
+    :class:`EmbeddingBagFn`.
     ``embedding_bag.launches`` counts the kernel launches of this process,
     ``launches_by_route`` each route's.
     """
+    if torch.is_grad_enabled() and table.requires_grad:
+        return EmbeddingBagFn.apply(table, idx, padding_idx)
+    return _forward(table, idx, padding_idx)
+
+
+def _forward(table, idx, padding_idx):
+    """The launch of :func:`embedding_bag` (its plain version for CPU
+    tensors), outside autograd."""
     if on_cpu(table, idx):
         return embedding_bag_ref(table, idx, padding_idx)
     dev = cuda_device(table)

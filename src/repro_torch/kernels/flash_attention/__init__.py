@@ -1,1 +1,1 @@
-from .ops import flash_attention  # noqa: F401
+from .ops import FlashAttentionFn, flash_attention  # noqa: F401

@@ -9,7 +9,14 @@ version (``ref.py``) for CPU tensors.
   8, 16 and 32.
 
 A failed build or launch raises; nothing runs the other kernel or the
-plain version in its place."""
+plain version in its place.
+
+Gradients: when grad mode is on and q, k or v requires a gradient, the
+call goes through :class:`FlashAttentionFn`, whose forward is the same
+launch (the plain version on the CPU) and whose backward is plain
+PyTorch: autograd of the chunked plain formulation
+(``ref.attention_grads``), the gradient the reference's training takes of
+its own plain attention.  No TPU kernel has a backward to port."""
 from __future__ import annotations
 
 import ctypes
@@ -19,7 +26,7 @@ import torch
 
 from .. import _build
 from .._common import cuda_device, on_cpu
-from .ref import flash_attention_ref
+from .ref import attention_grads, flash_attention_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
@@ -60,14 +67,44 @@ def _launcher(route: str):
     return fn
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal attention whose forward is the kernel (the plain version on
+    the CPU) and whose backward is :func:`ref.attention_grads`, ``chunk``
+    queries at a time.  Saves q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.chunk = chunk
+        return _forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        return (*attention_grads(q, k, v, grad_out.contiguous(), ctx.chunk),
+                None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    chunk: int | None = None) -> torch.Tensor:
     """Causal attention of q ``[B,S,H,Dh]`` over k/v ``[B,S,Hkv,Dh]`` with
     the ``H / Hkv`` query heads of each kv head grouped together; returns
     ``[B,S,H,Dh]`` in q's dtype.  fp32 or bf16, all three of one dtype,
-    contiguous; ``Dh`` one of :data:`HEAD_DIMS`; any ``S``.
+    contiguous; ``Dh`` one of :data:`HEAD_DIMS`; any ``S``.  With grad
+    mode on and an input that requires a gradient it goes through
+    :class:`FlashAttentionFn`, whose backward takes ``chunk`` queries at a
+    time (all ``S`` at once when None).
     ``flash_attention.launches`` counts the kernel launches of this
     process and ``flash_attention.launches_by_route`` each route's."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, chunk or max(q.shape[1], 1))
+    return _forward(q, k, v)
+
+
+def _forward(q, k, v):
+    """The launch of :func:`flash_attention` (its plain version for CPU
+    tensors), outside autograd."""
     if on_cpu(q, k, v):
         return flash_attention_ref(q, k, v)
     dev = cuda_device(q)

@@ -1,6 +1,6 @@
-"""Transformer LM in PyTorch: ``repro``'s ``models/lm/model.py`` for
-inference -- GQA and MLA attention, dense and MoE FFNs, KV-cache decode
-and the multi-token-prediction head.
+"""Transformer LM in PyTorch: ``repro``'s ``models/lm/model.py`` -- GQA
+and MLA attention, dense and MoE FFNs, KV-cache decode and the
+multi-token-prediction head, for serving and for training.
 
 Layouts are the reference's at every public function: activations
 ``[B, S, D]``, q/k/v ``[B, S, H, Dh]``, weights ``w_q [D, H, Dh]``,
@@ -10,10 +10,13 @@ under ``params["dense_blocks"]`` and ``params["moe_blocks"]`` (the first
 ``{stack: (k, v, pos)}``: GQA ``k``/``v [L, B, Smax, Hkv, Dh]``, MLA the
 latent ``c_kv [L, B, Smax, r]`` and the rotary key ``k_pe [L, B, Smax,
 dr]``.  The layers run as a Python loop over each stack (the reference's
-``lax.scan``); there is no remat, since nothing here is differentiated.
+``lax.scan``).  With grad mode on, each layer of the stacks runs under
+``torch.utils.checkpoint`` as ``cfg.remat_policy`` says (the reference's
+``_remat_wrap``); the serving steps run under ``torch.no_grad()``.
 
 Prefill attention: GQA runs through the hand-written ``flash_attention``
-kernel on a card (its plain version on the CPU).  MLA's q/k head dim
+kernel on a card (its plain version on the CPU), and its gradient through
+the wrapper's ``FlashAttentionFn``.  MLA's q/k head dim
 (``dn + dr``, 192 at deepseek-v3) differs from its v head dim (128),
 which neither the TPU kernel nor ``flash_attention`` takes; the reference
 computes it outside any kernel, and so does the port, in
@@ -31,11 +34,14 @@ formulation, kept for the tests and the card's check.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -241,8 +247,9 @@ def causal_attention(q, k, v, cfg: LMConfig, q_offset: int = 0):
     """The reference's ``causal_attention`` for GQA: q ``[B,S,H,Dh]``
     against k/v ``[B,S,Hkv,Dh]``, query position i attending kv positions
     <= i, through the ``flash_attention`` kernel.  The kernel never
-    materializes the ``[S, S]`` scores, so ``cfg.attn_chunk`` (the
-    reference's memory bound) is not read.  It takes the square causal
+    materializes the ``[S, S]`` scores; ``cfg.attn_chunk`` (the
+    reference's memory bound) is the query chunk of its backward, which
+    recomputes the scores.  It takes the square causal
     case, the only one the prefill makes: ``q_offset`` 0 and as many keys
     as queries."""
     if q_offset or k.shape[1] != q.shape[1]:
@@ -250,7 +257,7 @@ def causal_attention(q, k, v, cfg: LMConfig, q_offset: int = 0):
             f"causal attention with q_offset {q_offset} over {k.shape[1]} "
             f"keys for {q.shape[1]} queries: the prefill attends its own "
             f"positions only")
-    return flash_attention(q, k, v)
+    return flash_attention(q, k, v, chunk=cfg.attn_chunk)
 
 
 def chunked_attention(q, k, v, chunk: int):
@@ -262,14 +269,14 @@ def chunked_attention(q, k, v, chunk: int):
     head dims no kernel takes (see the module docstring)."""
     B, S, H, Dq = q.shape
     scale = 1.0 / math.sqrt(Dq)
-    out = q.new_empty((B, S, H, v.shape[-1]))
     pos = torch.arange(S, device=q.device)
+    outs = []
     for lo in range(0, S, chunk):
         hi = min(lo + chunk, S)
         mask = pos[None, :hi] <= pos[lo:hi, None]
-        out[:, lo:hi] = _gqa_scores_ctx(q[:, lo:hi], k[:, :hi], v[:, :hi],
-                                        mask, scale)
-    return out
+        outs.append(_gqa_scores_ctx(q[:, lo:hi], k[:, :hi], v[:, :hi], mask,
+                                    scale))
+    return torch.cat(outs, dim=1)
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -441,8 +448,12 @@ def _aux_loss(cfg: LMConfig, probs, expert) -> torch.Tensor:
     counted in f."""
     m = cfg.moe
     E, K = m.n_experts, m.top_k
-    f = torch.bincount(expert.reshape(-1), minlength=E).float() \
-        * (K / expert.numel())
+    # counted by index_add_ into E slots: bincount sizes its output from
+    # the ids' maximum, a readback to the host on a card
+    ids = expert.reshape(-1)
+    f = torch.zeros(E, dtype=torch.float32, device=ids.device).index_add_(
+        0, ids, torch.ones(ids.shape, dtype=torch.float32,
+                           device=ids.device)) * (K / expert.numel())
     return E * (f * probs.mean(dim=(0, 1))).sum() / K
 
 
@@ -542,18 +553,47 @@ def block_fn(p, cfg: LMConfig, moe: bool, x, positions, cache=None, *,
 
 
 STACKS = (("dense_blocks", False), ("moe_blocks", True))
+# matrix products without batch dimensions (the projections): what the
+# reference's dots_with_no_batch_dims_saveable keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
-@torch.no_grad()
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(cfg: LMConfig, fn):
+    """``fn`` under ``torch.utils.checkpoint`` as ``cfg.remat_policy``
+    says, the reference's ``_remat_wrap``: ``"nothing"`` saves nothing
+    inside ``fn`` (its backward recomputes it whole), ``"dots"`` saves the
+    outputs of the matrix products without batch dimensions, ``"full"``
+    saves everything (no checkpoint).  Without grad mode, ``fn``."""
+    policy = cfg.remat_policy
+    if policy not in ("nothing", "dots", "full"):
+        raise ValueError(f"remat_policy {policy!r}")
+    if policy == "full" or not torch.is_grad_enabled():
+        return fn
+    # the blocks draw no random numbers: no RNG state to stash
+    opts = dict(use_reentrant=False, preserve_rng_state=False)
+    if policy == "dots":
+        opts["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: checkpoint(fn, *args, **opts)
+
+
 def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
-            caches=None, positions=None, attention=None):
+            caches=None, positions=None, attention=None,
+            keep_kv: bool = True):
     """tokens ``[B,S]`` -> (hidden ``[B,S,D]``, summed aux loss, new_caches).
 
     The dense stack runs first, then the MoE stack.  ``caches``: None for
-    prefill (the new caches are each layer's k/v, or MLA's latent
-    entries, stacked on a leading ``[L]``), else the decode caches,
-    updated in place.  ``attention`` replaces the prefill attention (the
-    plain ``flash_attention_ref`` for a GQA comparison)."""
+    prefill and training (the new caches are each layer's k/v, or MLA's
+    latent entries, stacked on a leading ``[L]``; ``{}`` with ``keep_kv``
+    False, as the loss takes it), else the decode caches, updated in
+    place.  ``attention`` replaces the prefill attention (the plain
+    ``flash_attention_ref`` for a GQA comparison).  With grad mode on,
+    each layer without caches runs under :func:`_remat_wrap`."""
     _check_dtypes(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens].to(_cdtype(cfg))
@@ -567,14 +607,19 @@ def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
         stacked = params[stack]
         L = stacked["ln1"].shape[0]
         if caches is None:
+            # partial, not a closure: the remat recompute calls it later
+            layer = _remat_wrap(cfg, functools.partial(
+                _block_no_cache, cfg=cfg, moe=moe, positions=positions,
+                attention=attention))
             ks, vs = [], []
             for l in range(L):
-                x, aux, (k, v) = block_fn(_layer(stacked, l), cfg, moe, x,
-                                          positions, attention=attention)
+                x, aux, (k, v) = layer(_layer(stacked, l), x)
                 aux_total = aux_total + aux
-                ks.append(k)
-                vs.append(v)
-            new_caches[stack] = (torch.stack(ks), torch.stack(vs))
+                if keep_kv:
+                    ks.append(k)
+                    vs.append(v)
+            if keep_kv:
+                new_caches[stack] = (torch.stack(ks), torch.stack(vs))
         else:
             ck, cv, pos = caches[stack]
             for l in range(L):
@@ -586,14 +631,18 @@ def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
     return x, aux_total, new_caches
 
 
-@torch.no_grad()
+def _block_no_cache(p, x, *, cfg, moe, positions, attention):
+    """:func:`block_fn` without caches, as the layer loop calls it:
+    (x, aux, (k, v))."""
+    return block_fn(p, cfg, moe, x, positions, attention=attention)
+
+
 def logits_fn(params: Params, cfg: LMConfig,
               hidden: torch.Tensor) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return hidden @ head
 
 
-@torch.no_grad()
 def mtp_head(params: Params, cfg: LMConfig, hidden, tokens):
     """DeepSeek-V3 depth-1 multi-token prediction: predict t+2 from
     (h_t, emb(token_{t+1})).  hidden ``[B,S,D]`` (``forward``'s), tokens

@@ -1,13 +1,15 @@
 """DLRM RM2 (arXiv:1906.00091) in PyTorch, the port of ``repro``'s
 ``models/recsys/dlrm.py``: sparse embeddings -> dot interaction -> MLPs,
-for serving and retrieval (forward functions; the train step is not
-ported yet).
+for serving, retrieval and training (the train step is
+``configs/dlrm_rm2.py``'s ``make_train_step``).
 
 Each field's sum-mode bag runs through the hand-written ``embedding_bag``
 kernel on a card (its plain version on the CPU): the reference's
-``take`` + sum is the contract the TPU kernel implements.  The retrieval
-shape scores one query against N candidates with one matrix-vector
-product.
+``take`` + sum is the contract the TPU kernel implements.  When the
+tables require a gradient the wrapper goes through ``EmbeddingBagFn``,
+whose backward is the bag's transpose (a dense table gradient).  The
+retrieval shape scores one query against N candidates with one
+matrix-vector product.
 """
 from __future__ import annotations
 
@@ -99,12 +101,11 @@ def _bags(params, sparse_idx: torch.Tensor, bag) -> list[torch.Tensor]:
     return [bag(t, idx[f]) for f, t in enumerate(params["tables"])]
 
 
-@torch.no_grad()
 def dlrm_forward(params, cfg: DLRMConfig, dense: torch.Tensor,
                  sparse_idx: torch.Tensor, *, bag=None) -> torch.Tensor:
     """dense ``[B, n_dense]``; sparse_idx ``[B, n_sparse, multi_hot]`` ->
     logits ``[B]``.  ``bag`` replaces the ``embedding_bag`` kernel (its
-    plain version for a comparison)."""
+    plain version for a comparison, differentiated by autograd)."""
     x_dense = mlp(params["bot"], dense, act=F.relu)            # [B, d]
     embs = _bags(params, sparse_idx, bag or embedding_bag)     # [B, d] each
     feats = torch.stack([x_dense] + embs, dim=1)               # [B, F, d]
@@ -115,7 +116,6 @@ def dlrm_forward(params, cfg: DLRMConfig, dense: torch.Tensor,
     return mlp(params["top"], z, act=F.relu)[:, 0]
 
 
-@torch.no_grad()
 def dlrm_loss(params, cfg: DLRMConfig, dense, sparse_idx, labels, *,
               bag=None) -> torch.Tensor:
     """Mean binary cross-entropy of the logits against ``labels`` (the
@@ -125,7 +125,6 @@ def dlrm_loss(params, cfg: DLRMConfig, dense, sparse_idx, labels, *,
                       + torch.log1p(torch.exp(-logits.abs())))
 
 
-@torch.no_grad()
 def retrieval_scores(params, cfg: DLRMConfig, query_dense: torch.Tensor,
                      query_sparse: torch.Tensor, cand_emb: torch.Tensor, *,
                      bag=None) -> torch.Tensor:

@@ -77,6 +77,27 @@ def test_sharded_checkpoint_roundtrip(tmp_path):
     np.testing.assert_array_equal(got["a"], tree["a"])
 
 
+def test_bf16_leaves_save_as_the_reference_saves_them(tmp_path):
+    """A bf16 tree (an LM's parameters) saves through the port's
+    CheckpointManager, each leaf the same 2-byte words as the reference's
+    file of the same values."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(3)
+    vals = {"w": rng.normal(size=(4, 3)), "b": [rng.normal(size=5)]}
+    ref_save_pytree(jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16),
+                                 vals), str(tmp_path / "ref"), 0)
+    ours = jax.tree.map(lambda a: torch.as_tensor(a).to(torch.bfloat16),
+                        vals)
+    assert CheckpointManager(str(tmp_path / "port")).maybe_save(ours, 0)
+    got, _ = restore_pytree(ours, str(tmp_path / "port"))
+    want, _ = ref_restore_pytree(ours, str(tmp_path / "ref"))
+    for g, w, t in zip(tree_flatten(got), tree_flatten(want),
+                       tree_flatten(ours)):
+        assert g.dtype.itemsize == w.dtype.itemsize == 2
+        assert np.array_equal(g.view(np.int16), w.view(np.int16))
+        assert np.array_equal(g.view(np.int16), t.view(torch.int16).numpy())
+
+
 def test_checkpoint_retention(tmp_path):
     mgr = CheckpointManager(str(tmp_path), every=1, keep=2)
     for i in range(5):

@@ -12,7 +12,9 @@ partition; embedding_bag's one-lane bags over DLRM-sized tables (past
 2^23 rows) equal to the plain version; flash_attention atol 1e-5 / rtol
 1e-4 in fp32 and 2e-2 in bf16, also at phi4-mini's prefill shape, at
 olmoe's MHA grouping and at ragged sequence lengths, on both of its
-routes (the wgmma kernel bit-equal across launches); and a small ``dist`` session at world size 1 over NCCL
+routes (the wgmma kernel bit-equal across launches); the gradients of
+``FlashAttentionFn`` (6 query heads a kv head among the shapes) and
+``EmbeddingBagFn`` against autograd of the plain versions; and a small ``dist`` session at world size 1 over NCCL
 against the full pass.  Imports no JAX, so it runs where only PyTorch is
 installed:
 
@@ -803,6 +805,79 @@ def test_flash_attention_mma_route_on_card(cuda, dtype, Dh):
     assert flash_attention.launches_by_route == {
         "wgmma": before["wgmma"], "mma": before["mma"] + 1}
     torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+GRAD_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-4),
+            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,Dh,chunk", [
+    (2, 256, 12, 2, 128, 128), (1, 300, 6, 1, 64, 128),
+    (2, 129, 16, 16, 128, 1024), (1, 77, 8, 2, 32, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_fn_gradients_on_card(cuda, B, S, H, Hkv, Dh, chunk,
+                                              dtype):
+    """``FlashAttentionFn`` on the card: one kernel launch forward (its
+    route), then the chunked plain backward, against autograd of
+    ``flash_attention_ref``, 6 query heads a kv head among the shapes
+    (qwen2's grouping)."""
+    from repro_torch.kernels.flash_attention.ops import kernel_route
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    q, k, v = (torch.randn((B, S, n, Dh), generator=g, device=cuda)
+               .to(dtype).requires_grad_() for n in (H, Hkv, Hkv))
+    grad = torch.randn((B, S, H, Dh), generator=g, device=cuda).to(dtype)
+    route = kernel_route(dtype, Dh, H, Hkv)
+    before = flash_attention.launches_by_route[route]
+    out = flash_attention(q, k, v, chunk=chunk)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    got = torch.autograd.grad(out, (q, k, v), grad)
+    ref = flash_attention_ref(q, k, v)
+    want = torch.autograd.grad(ref, (q, k, v), grad)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route[route] == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), w.float(), **GRAD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,B,hot,d,padding_idx", [
+    (10_000, 4096, 1, 64, None), (500, 1024, 4, 64, None),
+    (300, 512, 8, 32, 7), (1000, 256, 64, 128, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_fn_gradients_on_card(cuda, V, B, hot, d, padding_idx,
+                                            dtype):
+    """``EmbeddingBagFn`` on the card: one kernel launch forward (narrow or
+    span, as kernel_plan says), then the dense index_add_ backward against
+    autograd of ``embedding_bag_ref`` on the fp32 table, rounded once to
+    the table's dtype (the Function sums in fp32)."""
+    g = torch.Generator(device=cuda).manual_seed(V + hot)
+    table = torch.randn((V, d), generator=g, device=cuda).to(dtype) \
+        .requires_grad_()
+    idx = torch.randint(0, V, (B, hot), generator=g, device=cuda,
+                        dtype=torch.int32)
+    grad = torch.randn((B, d), generator=g, device=cuda).to(dtype)
+    before = embedding_bag.launches
+    out = embedding_bag(table, idx, padding_idx)
+    assert type(out.grad_fn).__name__ == "EmbeddingBagFnBackward"
+    (got,) = torch.autograd.grad(out, table, grad)
+    t32 = table.detach().float().requires_grad_()
+    (want,) = torch.autograd.grad(embedding_bag_ref(t32, idx, padding_idx),
+                                  t32, grad.float())
+    torch.cuda.synchronize()
+    assert embedding_bag.launches == before + 1
+    torch.testing.assert_close(
+        out.float(), embedding_bag_ref(table.detach(), idx,
+                                       padding_idx).float(),
+        **(S_TOL if dtype == torch.float32 else GRAD_TOL[dtype]))
+    assert got.dtype == dtype and got.shape == table.shape
+    tol = S_TOL if dtype == torch.float32 else dict(atol=1e-3,
+                                                    rtol=2.0 ** -8)
+    torch.testing.assert_close(got, want.to(dtype), **tol)
+    if padding_idx is not None:
+        assert not got[padding_idx].any()
 
 
 @pytest.mark.cuda

@@ -222,7 +222,7 @@ def test_prefill_attention_goes_through_the_kernel_wrapper(monkeypatch):
     params = model.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     calls = []
 
-    def spy(q, k, v):
+    def spy(q, k, v, chunk=None):
         calls.append(q.shape)
         return flash_attention_ref(q, k, v)
 

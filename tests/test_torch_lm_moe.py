@@ -332,7 +332,7 @@ def test_prefill_attention_routes(monkeypatch, arch, launches):
     params = model.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     calls = []
 
-    def spy(q, k, v):
+    def spy(q, k, v, chunk=None):
         calls.append(q.shape)
         return flash_attention_ref(q, k, v)
 
