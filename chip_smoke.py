@@ -177,14 +177,31 @@ items/s, model TFLOP/s, peak GB and the split.  (d) olmoe-1b-7b at its
 published width, depth cut to 2: one bf16 AdamW step on 4 x 2048 tokens,
 the loss and every gradient finite, the router's gradient non-zero.
 
+Phase 9 trains the four GNN architectures (SchNet, PNA, NequIP, DimeNet)
+at their published widths and depths on each of configs/gnn_common.py's
+four cells -- full_graph_sm, minibatch_lg (a block drawn by the port's
+NeighborSampler from a synthetic in-CSR of 232,965 nodes at in-degree
+492), ogb_products (n and m cut together per arch: GNN_TRAIN) and
+molecule (128 graphs, graph_mse) -- fp32, one warm-up and 3 timed AdamW
+steps on one fixed synthetic batch, one step split by CUDA events, one
+under torch.profiler.  Each prints a ``gnn_train`` line (n/m/t as run,
+the cuts, ms a step, forward / backward / optimizer ms, model TFLOP/s,
+peak GB, busy share, the loss before and after the timed steps, which
+must be finite and differ, and how far the parameters moved); at
+full_graph_sm and molecule the fp32 gradients against an fp64 run of
+the same code (the worst leaf).  Then schnet-part: partitioned SchNet v1
+and v2 on a one-rank NCCL group at SchNet's cut, each loss within 1e-3
+of the dense SchNet's (a ``gnn_part`` line).  No kernel of the port is on
+the GNN path: every count must stay 0.
+
 Phase 1 prints ptxas's registers and spills for every kernel
 instantiation; a spill in a hop kernel fails the run.  Any fault ends the
 run with a traceback and a non-zero exit; nothing is caught.  Without a
 CUDA card, or without the repository beside this file, it exits non-zero before printing any result.  Output ends with the run's
 seconds, the card line (nvidia-smi's name and power limit), the kernels
 JSON line (each kernel's launches with flash_attention's and
-embedding_bag's by route and by path, the training paths among them) and
-the device JSON line.
+embedding_bag's by route and by path, the training paths among them; the
+GNN phase launches none) and the device JSON line.
 
 Precision: TF32 is off for matmuls and cuDNN, so the SAGE self term, the
 bootstrap, the oracle and the LM's fp32 checks run in full fp32, as the
@@ -248,6 +265,13 @@ LM = dict(arch="phi4-mini-3.8b", batch=4, prompt=2048, tokens=32,
 # rounded to bf16 (2^-8) at every layer of 32; on an NVIDIA H100 80GB HBM3
 # (700 W) it measures 0.023, and the bar is about twice that.
 LM_BARS = {"float32": 1e-5, "bfloat16": 5e-2}
+# fp32 decode against a re-prefill (the MoE models, no drops): the two
+# compute one function in other summation orders.  On olmoe-1b-7b's
+# REDUCED config on the CPU the reference's own gap is 2.8377x the
+# port's (worst of 4 steps: 4.80e-7 against 1.69e-7; tests/
+# test_torch_lm_moe.py::test_fp32_decode_gap_against_reprefill_is_the_
+# references), so the port is held at LM_BARS' 1e-5 times that ratio
+FP32_DECODE_BAR = 1e-5 * 2.8377
 # phase 5: a threaded GraphServer with 4 tenants over a device gc-s session
 # (async dispatch), micro-batches of at most 100; the open-loop run offers
 # half the closed loop's engine updates/s over the first 1000 updates of a
@@ -306,6 +330,25 @@ DLRM_TRAIN = dict(batch=65_536, lr=1e-3, warmup=2, timed=5)
 DLRM_TRAIN_BAR = 1e-5
 # olmoe-1b-7b's MoE backward at its published width, 16 layers cut to 2
 MOE_TRAIN = dict(arch="olmoe-1b-7b", cut={"n_layers": 2}, batch=4, seq=2048)
+# phase 9: the GNN architectures' train steps, each of configs/
+# gnn_common.py's four cells at the published widths and depths: one
+# warm-up and 3 timed AdamW steps on one fixed synthetic batch (seed 0).
+# ogb_products cut, n and m together, to the smallest power of two whose
+# measured peak stays under ~70 GB (the reference laid the cell out for
+# 256 chips).  One step each, tools/gnn_cut_probe.py on an NVIDIA H100
+# 80GB HBM3, 700 W: SchNet 8 44.2 GB (4: out of memory), PNA 16 40.1 GB
+# (8: 80.0), NequIP 128 54.7 GB (64: out of memory), DimeNet 2048 34.6 GB
+# (t = 2^20; 1024: 69.1 GB in the probe and 73.7 GB in this phase's own
+# steps, over the line).  Gradients
+# against an fp64 run of the same code at GNN_FP64's cells.  schnet-part:
+# v1 and v2 on a one-rank NCCL group at SchNet's cut, their loss within
+# PART_LOSS_ATOL of the dense SchNet's (tests/part_runner.py's bar)
+GNN_TRAIN = dict(archs=("schnet", "pna", "nequip", "dimenet"), seed=0,
+                 warmup=1, timed=3, lr=1e-3,
+                 cuts={"ogb_products": dict(schnet=8, pna=16, nequip=128,
+                                            dimenet=2048)})
+GNN_FP64 = ("full_graph_sm", "molecule")
+PART_LOSS_ATOL = 1e-3
 
 
 def log(*parts) -> None:
@@ -2753,15 +2796,17 @@ def run_moe_lm(counters: dict, arch: str) -> dict:
 
     # held: the bars of LM_BARS on the experts fed, kernel against plain
     # in both dtypes and decode against a re-prefill on the served (bf16)
-    # model; fp32's decode against a re-prefill is measured, not held (its
-    # noise floor sits at the 1e-5 bar: PERF.md, PR 23)
+    # model; fp32's decode against a re-prefill at FP32_DECODE_BAR
+    bars = {("float32", "decode_vs_reprefill_no_drop"): FP32_DECODE_BAR}
     failed = [f"{dtype} {key} relative L2 {checks[key]['fed']} > "
-              f"{LM_BARS[dtype]}"
+              f"{bars.get((dtype, key), LM_BARS[dtype])}"
               for dtype, checks, key in (
                   ("bfloat16", bf16, "kernel_vs_plain"),
                   ("bfloat16", bf16, "decode_vs_reprefill_no_drop"),
-                  ("float32", fp32, "kernel_vs_plain"))
-              if key in checks and checks[key]["fed"] > LM_BARS[dtype]]
+                  ("float32", fp32, "kernel_vs_plain"),
+                  ("float32", fp32, "decode_vs_reprefill_no_drop"))
+              if key in checks and checks[key]["fed"]
+              > bars.get((dtype, key), LM_BARS[dtype])]
     m = fp32["moe_layer"]
     if not m["same_dropped_set"] or m["rel_l2"] > LM_BARS["float32"] \
             or m["aux_rel"] > 1e-6:
@@ -3322,6 +3367,258 @@ def run_moe_train(counters: dict) -> dict:
     return result
 
 
+# ---- phase 9: the GNN architectures' train steps ---------------------------
+def gnn_cut(arch: str, cell: str) -> int:
+    return GNN_TRAIN["cuts"].get(cell, {}).get(arch, 1)
+
+
+def to_fp64(x):
+    """A batch, triplets or parameter tree with every float tensor fp64."""
+    from repro_torch.ckpt.checkpoint import tree_flatten, tree_unflatten
+    if hasattr(x, "_replace"):           # GraphBatch, Triplets
+        return type(x)(*(t.double() if torch.is_tensor(t)
+                         and t.is_floating_point() else t for t in x))
+    return tree_unflatten(x, [t.double() for t in tree_flatten(x)])
+
+
+def gnn_grad_check(loss_fn, params, args) -> dict:
+    """The fp32 gradients of the trainable leaves against the same port
+    code run in fp64 on the card: the worst leaf's relative L2."""
+    from repro_torch.configs.gnn_common import split_params
+    from repro_torch.train import value_and_grad
+    train, aux = split_params(params)
+    grad = value_and_grad(lambda t, a, *rest: loss_fn({**t, **a}, *rest))
+    loss32, g32 = grad(train, aux, *args)
+    args64 = [to_fp64(a) if hasattr(a, "_replace")
+              else (a.double() if a.is_floating_point() else a)
+              for a in args]
+    loss64, g64 = grad(to_fp64(train), to_fp64(aux), *args64)
+    err, leaf = grads_against(g32, g64)
+    return dict(worst_leaf_rel_l2=err, worst_leaf=leaf,
+                loss_rel=abs(float(loss32) - float(loss64))
+                / abs(float(loss64)),
+                finite=all_finite(g32) and all_finite(g64))
+
+
+def run_gnn_cell(counters: dict, arch: str, cell: str, data) -> dict:
+    """One arch at one cell: warm-up and timed steps of the module's
+    materialised cell on ``data`` (host ms a step between
+    synchronisations), one more step split by CUDA events, one under
+    torch.profiler; no kernel of the port may launch (the message passing
+    is index_add_, scatter_reduce_ and gathers, as the reference's
+    segment sums)."""
+    from repro_torch.ckpt.checkpoint import tree_flatten
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_common import (SHAPES, make_gnn_loss,
+                                                split_params)
+    from repro_torch.train import adamw_update
+    mod = get_arch(arch)
+    shape = SHAPES[cell]
+    built = mod.cells()[cell](DEVICE, seed=GNN_TRAIN["seed"],
+                              cut=gnn_cut(arch, cell), data=data)
+    params, opt, batch, labels, *extra = built.args
+    n_graphs = shape.get("n_graphs")
+    loss_fn = make_gnn_loss(mod.FORWARD, "graph_mse" if n_graphs
+                            else "node_ce", n_graphs)
+    n_params, _ = tree_size(split_params(params)[0])
+    grad_check = (gnn_grad_check(loss_fn, params, (batch, labels, *extra))
+                  if cell in GNN_FP64 else None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    before = None
+    for i in range(GNN_TRAIN["warmup"] + GNN_TRAIN["timed"]):
+        if i == GNN_TRAIN["warmup"]:
+            before = [p.clone() for p in tree_flatten(split_params(params)[0])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, loss = built.step(*built.args)
+        torch.cuda.synchronize()
+        if i >= GNN_TRAIN["warmup"]:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    moved = max(float((a - b).abs().max()) for a, b in zip(
+        tree_flatten(split_params(params)[0]), before))
+    del before
+    train, _ = split_params(params)
+    split = split_step(lambda p: loss_fn(p, batch, labels, *extra), params,
+                       lambda g: adamw_update(split_params(g)[0], opt, train,
+                                              lr=GNN_TRAIN["lr"]))
+    window = device_window(lambda: built.step(*built.args))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    ms = statistics.median(step_ms)
+    sz = built.sizes
+    result = dict(
+        arch=arch, cell=cell, n=sz["n"], m=sz["m"], t=sz["t"],
+        n_real=sz["n_real"], m_real=sz["m_real"], t_real=sz["t_real"],
+        reduced=sz["reduced"], d_in=shape["d"], params=n_params,
+        step_ms=ms, step_ms_all=step_ms,
+        forward_ms=split["forward_ms"], backward_ms=split["backward_ms"],
+        optimizer_ms=split["optimizer_ms"],
+        model_tflop_per_s=built.model_flops / (ms * 1e-3) / 1e12,
+        peak_gb=peak / 1e9, device_busy_share=window["device_busy_share"],
+        device_ops=window["device_ops"], top=window["top"][:3],
+        loss_before=losses[GNN_TRAIN["warmup"]], loss_after=split["loss"],
+        losses=losses, params_moved=moved, grads_finite=split["grads_finite"],
+        grad_vs_fp64=grad_check, launches=launches)
+    if "sampled_from" in sz:
+        result["sampled_from"] = sz["sampled_from"]
+    del built, params, opt, batch, labels, extra, train
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("gnn_train", json.dumps(result))
+    bad = [k for k in ("loss_before", "loss_after")
+           if not math.isfinite(result[k])]
+    if bad or result["loss_after"] == result["loss_before"] or moved == 0 \
+            or not split["grads_finite"]:
+        raise AssertionError(f"gnn {arch} {cell}: loss {losses} -> "
+                             f"{split['loss']}, parameters moved {moved}, "
+                             f"gradients finite {split['grads_finite']}")
+    if grad_check is not None and not grad_check["finite"]:
+        raise AssertionError(f"gnn {arch} {cell}: fp64 check {grad_check}")
+    if launches:
+        raise AssertionError(f"gnn {arch} {cell} launched {launches}: no "
+                             f"kernel of the port is on the GNN path")
+    return result
+
+
+def run_schnet_part(counters: dict) -> dict:
+    """schnet-part on a one-rank NCCL group (NCCL refuses two ranks on one
+    card) at SchNet's ogb_products cut: ``make_partitioned_schnet`` (v1)
+    and ``_v2`` on the cell's graph, features and SchNet parameters (seed
+    0), their loss against the dense SchNet's on the same inputs
+    (PART_LOSS_ATOL), the overflow flag, then one train step each.  At one
+    rank every message stays home, so v1's halo is the cell's e_cap
+    (configs/schnet_part.py::capacities; its 4x halo slack is for P
+    destinations)."""
+    import torch.distributed as dist
+    from repro_torch.ckpt.checkpoint import tree_flatten, tree_unflatten
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_common import (SHAPES, make_gnn_batch,
+                                                make_gnn_loss)
+    from repro_torch.configs.schnet_part import capacities
+    from repro_torch.models.gnn import partitioned as part
+    from repro_torch.train import adamw_init
+    mod = get_arch("schnet")
+    cut = gnn_cut("schnet", "ogb_products")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    data = make_gnn_batch(SHAPES["ogb_products"], device=DEVICE,
+                          seed=GNN_TRAIN["seed"], cut=cut)
+    b, sz = data.batch, data.sizes
+    n, m_real = sz["n"], sz["m_real"]
+    params = mod.INIT(torch.Generator(device=DEVICE).manual_seed(
+        GNN_TRAIN["seed"]), d_in=SHAPES["ogb_products"]["d"],
+        d_out=SHAPES["ogb_products"]["classes"], device=DEVICE)
+    with torch.no_grad():
+        dense = float(make_gnn_loss(mod.FORWARD, "node_ce")(params, b,
+                                                            data.labels))
+        src, dst = b.src[:m_real].long(), b.dst[:m_real].long()
+        vec = b.positions[src] - b.positions[dst]
+        dist_ = torch.sqrt((vec * vec).sum(-1) + 1e-12).cpu().numpy()
+    src, dst = src.cpu().numpy(), dst.cpu().numpy()
+    caps = capacities(1, n=n, m=m_real)
+    hp = dict(d_in=SHAPES["ogb_products"]["d"],
+              d_out=SHAPES["ogb_products"]["classes"], **mod.HP)
+    out = dict(arch="schnet-part", cell="ogb_products", n=n, m=m_real,
+               reduced=sz["reduced"], dense_loss=dense, capacities=caps)
+    with tempfile.TemporaryDirectory(prefix="part_store_") as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            edges, n_local, e_cap = part.partition_graph_for_push(
+                n, src, dst, dist_, 1)
+            v1 = part.make_partitioned_schnet(
+                n_local=n_local, e_cap=e_cap, halo_cap=caps["e_cap"], **hp)
+            edges2, _, cap2 = part.route_graph_for_push_v2(n, src, dst,
+                                                           dist_, 1)
+            v2 = part.make_partitioned_schnet_v2(n_local=n_local, cap2=cap2,
+                                                 **hp)
+            for tag, model, host in (("v1", v1, edges), ("v2", v2, edges2)):
+                mine = part.rank_edges(host, 0, DEVICE)
+                torch.cuda.reset_peak_memory_stats()
+                loss, grads, ovf = model.loss_and_grads(
+                    params, b.node_feat, mine, data.labels)
+                finite = all_finite(grads)
+                del grads
+                p = tree_unflatten(params, [t.clone() for t in
+                                            tree_flatten(params)])
+                opt = adamw_init(p)
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                _, _, step_loss, _ = model.train_step(p, opt, b.node_feat,
+                                                      mine, data.labels)
+                torch.cuda.synchronize()
+                out[tag] = dict(
+                    loss=float(loss), vs_dense=abs(float(loss) - dense),
+                    overflow=bool(ovf), grads_finite=finite,
+                    step_loss=float(step_loss),
+                    step_ms=(time.perf_counter() - ts) * 1e3,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    cap=caps["e_cap"] if tag == "v1" else cap2)
+                del mine, p, opt
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    launches = {n_: c.launches for n_, c in counters.items() if c.launches}
+    out["wall_s"] = time.perf_counter() - t0
+    del data, params
+    torch.cuda.empty_cache()
+    log("gnn_part", json.dumps(out))
+    for tag in ("v1", "v2"):
+        r = out[tag]
+        if r["vs_dense"] > PART_LOSS_ATOL or r["overflow"] \
+                or not r["grads_finite"] \
+                or abs(r["step_loss"] - r["loss"]) > PART_LOSS_ATOL:
+            raise AssertionError(f"schnet-part {tag}: {r}, dense loss "
+                                 f"{dense}, bar {PART_LOSS_ATOL}")
+    if launches:
+        raise AssertionError(f"schnet-part launched {launches}")
+    return out
+
+
+def run_gnn_train(counters: dict) -> dict:
+    """Phase 9: every arch at each of the four cells (``run_gnn_cell``),
+    the cells' batches drawn once and shared by the archs that run them at
+    the same cut (minibatch_lg's through NeighborSampler from a synthetic
+    in-CSR of 232,965 nodes at in-degree 492); then ``run_schnet_part``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_common import SHAPES, make_gnn_batch
+    t0 = time.perf_counter()
+    reset_counts(counters)
+    cells = []
+    for cell, shape in SHAPES.items():
+        by_cut = {}
+        for arch in GNN_TRAIN["archs"]:
+            by_cut.setdefault(gnn_cut(arch, cell), []).append(arch)
+        for cut, archs in by_cut.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            ts = time.perf_counter()
+            data = make_gnn_batch(shape, device=DEVICE,
+                                  seed=GNN_TRAIN["seed"], cut=cut,
+                                  triplets=any(get_arch(a).WITH_TRIPLETS
+                                               for a in archs))
+            torch.cuda.synchronize()
+            log(f"gnn batch {cell} cut {cut}: "
+                f"{time.perf_counter() - ts:.2f} s, {json.dumps(data.sizes)}")
+            cells += [run_gnn_cell(counters, arch, cell, data)
+                      for arch in archs]
+            del data
+    partitioned = run_schnet_part(counters)
+    wall = time.perf_counter() - t0
+    log(f"phase9: {wall:.1f} s, {len(cells)} cells; no kernel of the port "
+        f"launched (the GNN message passing is index_add_, scatter_reduce_ "
+        f"and gathers, as the reference's segment sums)")
+    return dict(cells=cells, partitioned=partitioned, wall_s=wall)
+
+
 def prepare() -> tuple[str, dict]:
     """Phase 1: checks that a card and the port are there, turns TF32 off,
     builds the kernels (printing ptxas's registers and spills) and returns
@@ -3415,6 +3712,9 @@ def main() -> int:
     dlrm_train = run_dlrm_train(counters)
     moe_train = run_moe_train(counters)
     log(f"phase8: {time.perf_counter() - t_train:.1f} s")
+
+    # ---- phase 9: the GNN architectures' train steps ---------------------
+    run_gnn_train(counters)
 
     launches = {name: sum(s["launches"][name] for s in sessions)
                 for name in counters}

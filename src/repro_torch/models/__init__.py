@@ -1,4 +1,4 @@
 """Model families of the port: the language models (``models.lm``: dense
-GQA, MoE, MLA), DLRM (``models.recsys``) and the GNN plumbing
-(``models.gnn.common``).  The GNN models themselves are still to come
-(ROADMAP.md, Queue 1)."""
+GQA, MoE, MLA), DLRM (``models.recsys``) and the GNNs (``models.gnn``:
+SchNet, PNA, NequIP, DimeNet, the neighbour sampler and owner-partitioned
+SchNet)."""

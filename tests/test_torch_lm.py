@@ -284,9 +284,7 @@ def test_registry_raises_for_what_is_not_ported():
     for name in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_arch(name)
-    assert set(NOT_PORTED) == {"schnet", "pna", "nequip", "dimenet",
-                               "schnet-part", "deepseek-v3-opt",
-                               "ripple-papers"}
+    assert set(NOT_PORTED) == {"deepseek-v3-opt", "ripple-papers"}
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
     for name in ("olmoe-1b-7b", "deepseek-v3-671b", "dlrm-rm2"):

@@ -458,6 +458,46 @@ def test_dlrm_train_step_matches_reference(multi_hot):
     _assert_tree_close(ot.nu, oj.nu, **STEP_TOL)
 
 
+def test_dlrm_jitted_reference_gradients_equal_unjitted(multi_hot=1):
+    """The reference's DLRM step jitted with its gradients as an output
+    beside the AdamW update, against its unjitted ``jax.value_and_grad``
+    on the CPU, for three steps: the gradients agree (within 1e-6 of each
+    leaf's norm; measured 2.6e-7 at most), and so do the port's
+    (``value_and_grad`` of ``dlrm_loss``) at the existing test's bars.
+    So ``test_dlrm_train_step_matches_reference``'s separate
+    ``value_and_grad`` and unjitted steps are a choice, not a guard
+    against a reference fault: the ~20% disagreement once reported at
+    multi_hot 1 does not occur on this JAX."""
+    cfg = dlrm_cfgs.SMOKE_CONFIG._replace(multi_hot=multi_hot)
+    pj = jd.init_dlrm(jax.random.PRNGKey(7), cfg)
+    oj = jax_optim.adamw_init(pj)
+
+    def step_j(params, opt_state, dense, sparse, labels):
+        loss, grads = jax.value_and_grad(jd.dlrm_loss)(params, cfg, dense,
+                                                       sparse, labels)
+        params, opt_state = jax_optim.adamw_update(grads, opt_state, params,
+                                                   lr=1e-3)
+        return params, opt_state, loss, grads
+
+    jitted = jax.jit(step_j)
+    for i in range(3):
+        batch = _dlrm_inputs(cfg, 64, seed=30 + i)
+        jb = tuple(map(jnp.asarray, batch))
+        lu, gu = jax.value_and_grad(jd.dlrm_loss)(pj, cfg, *jb)
+        _, _, lj, gj = jitted(pj, oj, *jb)
+        pt = td.params_from_numpy(jax.tree.map(np.asarray, pj), cfg, "cpu")
+        lt, gt = value_and_grad(td.dlrm_loss)(
+            pt, cfg, *(torch.as_tensor(a) for a in batch))
+        np.testing.assert_allclose(float(lj), float(lu), rtol=LOSS_REL)
+        np.testing.assert_allclose(float(lt), float(lu), rtol=LOSS_REL)
+        for x, y in zip(jax.tree.leaves(gj), jax.tree.leaves(gu)):
+            assert _rel_l2(x, y) <= 1e-6
+        for got, want in _pairs(gu, gt):
+            np.testing.assert_allclose(_np(got), _np(want), atol=1e-6,
+                                       rtol=1e-5)
+        pj, oj, _ = step_j(pj, oj, *jb)[:3]
+
+
 # ---------------------------------------------------------------------------
 # the kernels' autograd Functions, through their plain forwards
 # ---------------------------------------------------------------------------
