@@ -194,6 +194,19 @@ and v2 on a one-rank NCCL group at SchNet's cut, each loss within 1e-3
 of the dense SchNet's (a ``gnn_part`` line).  No kernel of the port is on
 the GNN path: every count must stay 0.
 
+Phase 10 is the dry-run (``repro_torch.launch.dryrun``): its CLI runs
+with ``--device cuda`` in subprocesses for ``--arch extra --mesh both``
+and three cells of the 16 x 16 mesh (qwen2-1.5b train_4k, olmoe-1b-7b
+decode_32k, deepseek-v3-671b prefill_32k), each record printed as a
+``dryrun_record`` line, while three groundings run on the card: phase
+8's qwen2-1.5b step (4 x 2048, bf16, AdamW, remat "nothing") and the
+prefill of the same tokens, each measured for its peak allocated bytes
+and its FLOPs under FlopCounterMode, and one propagate call of phase 6's ``dist`` gc-s session (one NCCL rank) for
+its peak, each against the dry-run's trace of the same call as rank 0
+of a 1 x 1 fake mesh: argument bytes equal, FLOPs to 1e-9, peaks within
+10% (``GROUND``; a ``dryrun grounding`` line each).  A non-zero exit of
+any subprocess fails the phase.
+
 Phase 1 prints ptxas's registers and spills for every kernel
 instantiation; a spill in a hop kernel fails the run.  Any fault ends the
 run with a traceback and a non-zero exit; nothing is caught.  Without a
@@ -3619,6 +3632,272 @@ def run_gnn_train(counters: dict) -> dict:
     return dict(cells=cells, partitioned=partitioned, wall_s=wall)
 
 
+# ---- phase 10: the dry-run ---------------------------------------------------
+# the dry-run's own CLI, in subprocesses: --arch extra on both meshes and
+# three cells on the 16 x 16 mesh
+DRYRUN = (["--arch", "extra", "--mesh", "both"],
+          ["--arch", "qwen2-1.5b", "--shape", "train_4k"],
+          ["--arch", "olmoe-1b-7b", "--shape", "decode_32k"],
+          ["--arch", "deepseek-v3-671b", "--shape", "prefill_32k"])
+# grounding: the dry-run's prediction of one rank against the card, the
+# same code on a 1 x 1 mesh: FLOPs to 1e-9 (the same formulas count the
+# same ops), the peak to 10% (the trace counts live storage, the card's
+# allocator rounds and keeps its own workspaces)
+GROUND = dict(flops_rel=1e-9, peak_rel=0.10)
+
+_PREDICT = r"""
+import json, sys, time
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_dryrun_mesh
+req = json.loads(sys.argv[1])
+mesh = make_dryrun_mesh((1, 1), ("data", "model"), "cuda")
+if req["cell"] == "lm":
+    from repro_torch.configs.lm_common import _mk_builder
+    from repro_torch.configs.registry import get_arch
+    built = _mk_builder(get_arch(req["arch"]).CONFIG, req["kind"],
+                        req["seq"], req["batch"])(mesh)
+else:
+    from repro_torch.configs.ripple_stream import build_ripple
+    geo = req["geometry"]
+    geo["caps"] = tuple(tuple(c) for c in geo["caps"])
+    geo["halo_cap"] = tuple(geo["halo_cap"])
+    geo["dims"] = tuple(geo["dims"])
+    built = build_ripple(mesh, **geo)
+t0 = time.perf_counter()
+out = dryrun.trace_cell(built, mesh, "cuda")
+out["trace_s"] = time.perf_counter() - t0
+print(json.dumps(out))
+"""
+
+
+def spawn_port(args: list) -> subprocess.Popen:
+    """A Python subprocess with the port on its path (its output piped)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable] + args, cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finished(proc: subprocess.Popen, label: str,
+             timeout: float = 900) -> str:
+    """``proc``'s standard output once it exits 0; a non-zero exit fails
+    the phase with its output."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n"
+                             f"{out[-4000:]}\n{err[-6000:]}")
+    return out
+
+
+def storage_bytes(tree) -> int:
+    """Bytes of the distinct storages under the tensors of ``tree``."""
+    from torch.utils._pytree import tree_flatten
+    seen = {}
+    for t in tree_flatten(tree)[0]:
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def held_prediction(label: str, pred: dict, flops, peak: int,
+                    arg_bytes: int) -> dict:
+    """The dry-run's prediction against the card's measurement: argument
+    bytes equal, peak within GROUND["peak_rel"], FLOPs (when measured)
+    within GROUND["flops_rel"]."""
+    out = dict(predicted_peak=pred["peak_bytes"], measured_peak=peak,
+               peak_ratio=pred["peak_bytes"] / peak,
+               predicted_argument_bytes=pred["argument_bytes"],
+               measured_argument_bytes=arg_bytes,
+               trace_s=pred["trace_s"])
+    if flops is not None:
+        out.update(predicted_flops=pred["flops"], measured_flops=flops,
+                   flops_ratio=pred["flops"] / flops)
+    log(f"dryrun grounding {label}: {json.dumps(out)}")
+    if pred["argument_bytes"] != arg_bytes:
+        raise AssertionError(f"{label}: predicted argument bytes "
+                             f"{pred['argument_bytes']}, the card holds "
+                             f"{arg_bytes}")
+    if abs(out["peak_ratio"] - 1.0) > GROUND["peak_rel"]:
+        raise AssertionError(f"{label}: predicted peak {pred['peak_bytes']}"
+                             f" against {peak} measured")
+    if flops is not None and abs(pred["flops"] - flops) \
+            > GROUND["flops_rel"] * flops:
+        raise AssertionError(f"{label}: predicted {pred['flops']} FLOPs, "
+                             f"{flops} counted on the card")
+    return out
+
+
+def lm_prediction(kind: str) -> subprocess.Popen:
+    """The dry-run's trace of qwen2-1.5b's ``kind`` cell function at
+    TRAIN's batch and sequence, as one rank of a 1 x 1 mesh."""
+    return spawn_port(["-c", _PREDICT, json.dumps(dict(
+        cell="lm", kind=kind, arch=TRAIN["arch"], seq=TRAIN["seq"],
+        batch=TRAIN["batch"]))])
+
+
+def ground_lm(pred_proc: subprocess.Popen, kind: str) -> dict:
+    """Phase 8's qwen2-1.5b step (TRAIN's batch and sequence, bf16, AdamW,
+    remat "nothing"; ``kind`` "train") or the prefill step of the same
+    tokens (``kind`` "prefill", caches of the sequence's length) on the
+    card: one call's peak allocated bytes after a warm-up call (what lived
+    before it, less its arguments, taken off), and one call's FLOPs under
+    FlopCounterMode; against the dry-run's trace of the same call as one
+    rank of a 1 x 1 mesh."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model, steps
+    cfg = get_arch(TRAIN["arch"]).CONFIG
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init_params(torch.Generator(device=DEVICE).manual_seed(0),
+                               cfg, DEVICE)
+    tokens = train_batch(0, TRAIN["batch"], TRAIN["seq"], cfg.vocab).long()
+    if kind == "train":
+        args = (params, steps.init_opt_state(cfg, params), tokens)
+        step = steps.make_train_step(cfg, lr=TRAIN["lr"])
+    else:
+        args = (params, tokens)
+        step = steps.make_prefill_step(cfg, max_seq=TRAIN["seq"])
+    arg_bytes = storage_bytes(args)
+    out = step(*args)
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before + arg_bytes
+    del out
+    with FlopCounterMode(display=False) as counter:
+        out = step(*args)
+    torch.cuda.synchronize()
+    flops = counter.get_total_flops()
+    del out, args, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    pred = json.loads(finished(pred_proc, f"lm {kind} prediction")
+                      .splitlines()[-1])
+    return held_prediction(f"{cfg.name} {kind} {TRAIN['batch']} x "
+                           f"{TRAIN['seq']}", pred, flops, peak, arg_bytes)
+
+
+def ground_ripple(counters: dict) -> dict:
+    """Phase 6's ``dist`` gc-s session at world size 1 (one NCCL rank, the
+    Arxiv scale): after its first batch, one propagate call of the next
+    batch at the cap rung the first left, its peak allocated bytes on the
+    card against ``build_ripple``'s trace at the same geometry and caps
+    (the engine donates its state, and so does the traced call)."""
+    import torch.distributed as dist
+    from repro_torch.core.graph import UpdateBatch
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="dryrun_store_") as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            # a mesh of this group: phase 6's default mesh held the group
+            # it destroyed
+            from repro_torch.launch.mesh import make_local_mesh
+            session, _, _ = build_session(
+                "gc-s", "dist", counters,
+                engine_options={"mesh": make_local_mesh(1, 1, DEVICE)})
+            eng = session.engine.impl
+            updates = session.make_stream(N_UPDATES, seed=1).updates
+            session.ingest(updates[:BATCH], batch_size=BATCH)
+            nxt = updates[BATCH:2 * BATCH]
+            np_b, out_rows, in_rows = eng._route(UpdateBatch(
+                edges=[u for u in nxt if hasattr(u, "src")],
+                features=[u for u in nxt if not hasattr(u, "src")]))
+            eng.out_csr.refresh_rows(out_rows)
+            db, k = eng._upload_batch(np_b)
+            capsx = eng._caps(eng._rung)
+            out_csr = eng.out_csr.device()
+            arg_bytes = storage_bytes((eng._params, eng.H, eng.S, k, out_csr,
+                                       db))
+            geometry = dict(n_vertices=eng.n_local * eng.n_parts,
+                            pool=eng.out_csr.pool,
+                            caps=[list(c) for c in capsx[0]],
+                            halo_cap=list(capsx[1]),
+                            feat_cap=int(db.ints.shape[1]),
+                            dims=list(eng.workload.spec.dims),
+                            donate=eng.donate)
+            pred_proc = spawn_port(["-c", _PREDICT, json.dumps(
+                dict(cell="ripple", geometry=geometry))])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            st, report = eng._run(db, k, capsx)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before + arg_bytes
+            overflow = bool(eng._read(report, capsx)[0])
+            del st, report, session, eng
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    pred = json.loads(finished(pred_proc, "ripple prediction")
+                      .splitlines()[-1])
+    out = held_prediction("ripple gc-s (dist, world 1)", pred, None, peak,
+                          arg_bytes)
+    out.update(geometry=geometry, overflow=overflow)
+    return out
+
+
+def run_dryrun(counters: dict, card: str) -> dict:
+    """Phase 10: the dry-run.  Its CLI (``python -m
+    repro_torch.launch.dryrun --device cuda``) runs in subprocesses for
+    DRYRUN's cells while the three groundings run on the card: the
+    prediction for phase 8's qwen2-1.5b step, for qwen2-1.5b's prefill of
+    the same tokens and for one propagate call of phase 6's ``dist`` gc-s
+    session, each traced in a subprocess of its own (the fake process group a trace runs on takes its process).  Each
+    record prints as a ``dryrun_record`` line; a non-zero exit of any
+    subprocess fails the phase."""
+    t0 = time.perf_counter()
+    reset_counts(counters)
+    runs = [(args, spawn_port(["-m", "repro_torch.launch.dryrun",
+                               "--device", "cuda", "--out",
+                               str(Path(tempfile.gettempdir())
+                                   / f"dryrun_{os.getpid()}_{i}.jsonl")]
+                              + args))
+            for i, args in enumerate(DRYRUN)]
+    preds = {kind: lm_prediction(kind) for kind in ("train", "prefill")}
+    lm = ground_lm(preds["train"], "train")
+    prefill = ground_lm(preds["prefill"], "prefill")
+    ripple = ground_ripple(counters)
+    records = []
+    for i, (args, proc) in enumerate(runs):
+        out = finished(proc, f"dryrun {' '.join(args)}", timeout=1200)
+        log(f"dryrun {' '.join(args)}:")
+        log("\n".join(line for line in out.splitlines()
+                      if line.startswith(("[OK]", "[FAIL]"))))
+        path = Path(tempfile.gettempdir()) / f"dryrun_{os.getpid()}_{i}.jsonl"
+        for line in path.read_text().splitlines():
+            rec = json.loads(line)
+            log("dryrun_record", json.dumps(rec))
+            records.append(rec)
+        path.unlink()
+    want = 2 + len(DRYRUN) - 1
+    if len(records) != want:
+        raise AssertionError(f"dryrun: {len(records)} records, expected "
+                             f"{want}")
+    for rec in records:
+        vals = [rec["flops_per_chip"], rec["bytes_per_chip"],
+                rec["mem_per_device"]["peak_bytes"]]
+        if not all(math.isfinite(v) and v > 0 for v in vals):
+            raise AssertionError(f"dryrun {rec['cell']}: {vals}")
+    wall = time.perf_counter() - t0
+    log(f"phase10: {wall:.1f} s, {len(records)} dry-run records; lm "
+        f"flops ratio {lm['flops_ratio']:.12f}, peak ratio "
+        f"{lm['peak_ratio']:.4f}; prefill flops ratio "
+        f"{prefill['flops_ratio']:.12f}, peak ratio "
+        f"{prefill['peak_ratio']:.4f}; ripple peak ratio "
+        f"{ripple['peak_ratio']:.4f}")
+    return dict(lm=lm, prefill=prefill, ripple=ripple, records=records,
+                wall_s=wall)
+
+
 def prepare() -> tuple[str, dict]:
     """Phase 1: checks that a card and the port are there, turns TF32 off,
     builds the kernels (printing ptxas's registers and spills) and returns
@@ -3715,6 +3994,9 @@ def main() -> int:
 
     # ---- phase 9: the GNN architectures' train steps ---------------------
     run_gnn_train(counters)
+
+    # ---- phase 10: the dry-run, grounded on the card ----------------------
+    run_dryrun(counters, card)
 
     launches = {name: sum(s["launches"][name] for s in sessions)
                 for name in counters}

@@ -2,6 +2,7 @@
 vocab=129280 -- 1 shared + 256 routed experts top-8 (expert ff 2048, first 3
 layers dense ff 18432), MTP depth 1.  The optimizer field (Adafactor) is
 read by the reference's training path only."""
+from repro_torch.configs.lm_common import lm_cells
 from repro_torch.models.lm.config import LMConfig, MLAConfig, MoEConfig
 
 CONFIG = LMConfig(
@@ -16,3 +17,5 @@ CONFIG = LMConfig(
     mtp_depth=1, optimizer="adafactor", remat_policy="nothing")
 
 REDUCED = CONFIG.reduced()
+
+CELLS = lm_cells("deepseek-v3-671b", CONFIG)

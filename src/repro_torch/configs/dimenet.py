@@ -3,6 +3,7 @@ n_spherical=7 n_radial=6 -- triplet directional message passing."""
 from functools import partial
 
 from repro_torch.models.gnn.dimenet import dimenet_forward, init_dimenet
+from .common import cells_not_ported
 from .gnn_common import cell_builders
 
 HP = dict(d_hidden=128, n_blocks=6, n_bilinear=8, n_spherical=7, n_radial=6,
@@ -21,3 +22,6 @@ def cells() -> dict:
     return cell_builders("dimenet", INIT, FORWARD, molecular=MOLECULAR,
                          with_triplets=WITH_TRIPLETS,
                          d_hidden=HP["d_hidden"], n_layers=N_LAYERS)
+
+# the dry-run cells: ROADMAP.md Queue 1 item 5.4
+__getattr__ = cells_not_ported(__name__)

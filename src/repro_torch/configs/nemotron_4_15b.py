@@ -1,5 +1,6 @@
 """nemotron-4-15b [arXiv:2402.16819]: 32L d=6144 48H (GQA kv=8) ff=24576
 vocab=256000 -- GQA + squared-ReLU."""
+from repro_torch.configs.lm_common import lm_cells
 from repro_torch.models.lm.config import LMConfig
 
 CONFIG = LMConfig(
@@ -9,3 +10,5 @@ CONFIG = LMConfig(
     optimizer="adamw", remat_policy="nothing")
 
 REDUCED = CONFIG.reduced(activation="squared_relu")
+
+CELLS = lm_cells("nemotron-4-15b", CONFIG)

@@ -3,6 +3,7 @@ E(3) tensor-product messages (Cartesian-irrep adaptation)."""
 from functools import partial
 
 from repro_torch.models.gnn.nequip import init_nequip, nequip_forward
+from .common import cells_not_ported
 from .gnn_common import cell_builders
 
 HP = dict(d_hidden=32, n_layers=5, l_max=2, n_rbf=8, cutoff=5.0)
@@ -19,3 +20,6 @@ def cells() -> dict:
     """The four cells' materialising builders, by shape name."""
     return cell_builders("nequip", INIT, FORWARD, molecular=MOLECULAR,
                          d_hidden=HP["d_hidden"], n_layers=N_LAYERS)
+
+# the dry-run cells: ROADMAP.md Queue 1 item 5.4
+__getattr__ = cells_not_ported(__name__)

@@ -1,5 +1,6 @@
 """olmoe-1b-7b [arXiv:2409.02060; hf]: 16L d=2048 16H (MHA) expert-ff=1024
 vocab=50304 -- 64 experts, top-8 routing, SwiGLU experts."""
+from repro_torch.configs.lm_common import lm_cells
 from repro_torch.models.lm.config import LMConfig, MoEConfig
 
 CONFIG = LMConfig(
@@ -11,3 +12,5 @@ CONFIG = LMConfig(
     optimizer="adamw", remat_policy="nothing")
 
 REDUCED = CONFIG.reduced()
+
+CELLS = lm_cells("olmoe-1b-7b", CONFIG)

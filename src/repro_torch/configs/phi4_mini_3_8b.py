@@ -1,5 +1,6 @@
 """phi4-mini-3.8b [arXiv:2412.08905; hf]: 32L d=3072 24H (GQA kv=8) ff=8192
 vocab=200064 -- RoPE + SwiGLU + GQA."""
+from repro_torch.configs.lm_common import lm_cells
 from repro_torch.models.lm.config import LMConfig
 
 CONFIG = LMConfig(
@@ -9,3 +10,5 @@ CONFIG = LMConfig(
     optimizer="adamw", remat_policy="nothing")
 
 REDUCED = CONFIG.reduced()
+
+CELLS = lm_cells("phi4-mini-3.8b", CONFIG)

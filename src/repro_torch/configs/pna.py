@@ -3,6 +3,7 @@ scalers identity-amplification-attenuation."""
 from functools import partial
 
 from repro_torch.models.gnn.pna import init_pna, pna_forward
+from .common import cells_not_ported
 from .gnn_common import cell_builders
 
 HP = dict(d_hidden=75, n_layers=4)
@@ -18,3 +19,6 @@ def cells() -> dict:
     """The four cells' materialising builders, by shape name."""
     return cell_builders("pna", INIT, FORWARD, molecular=MOLECULAR,
                          d_hidden=HP["d_hidden"], n_layers=N_LAYERS)
+
+# the dry-run cells: ROADMAP.md Queue 1 item 5.4
+__getattr__ = cells_not_ported(__name__)

@@ -1,10 +1,12 @@
-"""Architecture registry: ``--arch <id>`` resolution for the launchers.
+"""Architecture registry: ``--arch <id>`` resolution for the launchers
+and the dry-run.
 
 The port runs the language models (dense GQA, MoE and MLA), DLRM-RM2,
-the four GNN architectures and owner-partitioned SchNet.  The two archs
-of ``repro``'s registry that exist only for its dry run raise
-``NotImplementedError`` naming the ROADMAP item that ports them, so no
-name is ever served by something else.
+the four GNN architectures and owner-partitioned SchNet, and holds the
+reference's dry-run cells of the language models, ``deepseek-v3-opt``
+and ``ripple-papers``.  The GNN, DLRM-RM2 and ``schnet-part`` modules'
+``CELLS`` raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 from __future__ import annotations
 
@@ -22,15 +24,9 @@ ARCHS = {
     "nequip": "repro_torch.configs.nequip",
     "dimenet": "repro_torch.configs.dimenet",
     "schnet-part": "repro_torch.configs.schnet_part",
-}
-
-_DRYRUN = ("the dry-run cells (launch/dryrun.py): ROADMAP.md Queue 1, "
-           "item 5.3")
-NOT_PORTED = {
-    "deepseek-v3-opt": "its variants change only the GSPMD shardings and "
-                       "the train microbatch; " + _DRYRUN,
-    "ripple-papers": "the distributed dry-run cell (launch/dryrun.py): "
-                     "ROADMAP.md Queue 1, item 5.3",
+    # the paper's own workload (extra, beyond the assigned cells)
+    "ripple-papers": "repro_torch.configs.ripple_stream",
+    "deepseek-v3-opt": "repro_torch.configs.deepseek_v3_opt",
 }
 
 
@@ -39,10 +35,29 @@ def get_arch(name: str):
     ``REDUCED`` (the CPU-test size) for a language model; ``CONFIG`` and
     ``SMOKE_CONFIG`` for DLRM-RM2; ``HP``, ``INIT``, ``FORWARD``,
     ``SMOKE_INIT``, ``SMOKE_FORWARD`` and ``cells()`` for a GNN; the
-    capacities for ``schnet-part``."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"arch {name!r} is not ported yet: "
-                                  f"{NOT_PORTED[name]}")
+    capacities for ``schnet-part``; ``CELLS``, the dry-run's cells, where
+    they are ported."""
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return import_module(ARCHS[name])
+
+
+def cells_of(name: str):
+    """The dry-run cells of ``name``, or None where they are not ported
+    yet (its ``CELLS`` raises ``NotImplementedError``)."""
+    try:
+        return get_arch(name).CELLS
+    except NotImplementedError:
+        return None
+
+
+def all_cells(include_extra: bool = False):
+    """Every ported dry-run cell (the reference's ``all_cells``; the extra
+    archs only with ``include_extra``)."""
+    cells = []
+    for name in ARCHS:
+        if name in ("ripple-papers", "schnet-part", "deepseek-v3-opt") \
+                and not include_extra:
+            continue
+        cells.extend(cells_of(name) or [])
+    return cells

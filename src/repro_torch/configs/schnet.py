@@ -2,6 +2,7 @@
 from functools import partial
 
 from repro_torch.models.gnn.schnet import init_schnet, schnet_forward
+from .common import cells_not_ported
 from .gnn_common import cell_builders
 
 HP = dict(d_hidden=64, n_interactions=3, n_rbf=300, cutoff=10.0)
@@ -19,3 +20,6 @@ def cells() -> dict:
     """The four cells' materialising builders, by shape name."""
     return cell_builders("schnet", INIT, FORWARD, molecular=MOLECULAR,
                          d_hidden=HP["d_hidden"], n_layers=N_LAYERS)
+
+# the dry-run cells: ROADMAP.md Queue 1 item 5.4
+__getattr__ = cells_not_ported(__name__)

@@ -10,6 +10,8 @@ for the dry run (ROADMAP.md Queue 1, item 5.3).
 """
 from __future__ import annotations
 
+from .common import cells_not_ported
+
 N, M, D, CLASSES = 2449408, 61859840, 100, 47
 
 
@@ -24,3 +26,6 @@ def capacities(n_parts: int, n: int = N, m: int = M) -> dict:
     halo_cap = int(-(-int(e_cap / n_parts * 4) // 256) * 256)
     cap2 = int(-(-int(m / n_parts ** 2 * 1.5) // 256) * 256)
     return dict(n_local=n_local, e_cap=e_cap, halo_cap=halo_cap, cap2=cap2)
+
+# the dry-run cells: ROADMAP.md Queue 1 item 5.4
+__getattr__ = cells_not_ported(__name__)

@@ -16,13 +16,22 @@ call goes through :class:`FlashAttentionFn`, whose forward is the same
 launch (the plain version on the CPU) and whose backward is plain
 PyTorch: autograd of the chunked plain formulation
 (``ref.attention_grads``), the gradient the reference's training takes of
-its own plain attention.  No TPU kernel has a backward to port."""
+its own plain attention.  No TPU kernel has a backward to port.
+
+The forward is the custom op ``torch.ops.repro_torch.flash_attention``
+(q, k, v, chunk): its implementation is :func:`_forward`, its fake
+implementation returns the output's shape and dtype and launches nothing,
+and its FLOP formula counts 4 Dh FLOPs for each causal (query, key) pair
+and query head; ``sharding.py`` holds its DTensor strategy and layout.  So
+the dry-run traces it on fake tensors and ``DTensor`` s, which a ctypes
+launch cannot see.  Its gradient is :class:`FlashAttentionFn`'s."""
 from __future__ import annotations
 
 import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from .._common import cuda_device, on_cpu
@@ -67,22 +76,54 @@ def _launcher(route: str):
     return fn
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              chunk: int) -> torch.Tensor:
+    """Causal attention: the kernel on a card, the plain version on the
+    CPU (:func:`_forward`).  ``chunk`` is the backward's query chunk."""
+    return _forward(q, k, v)
+
+
+@_flash_op.register_fake
+def _(q, k, v, chunk):
+    return torch.empty_like(q)
+
+
+def _grads(q, k, v, grad_out, chunk):
+    """:func:`ref.attention_grads` of ``grad_out``; on ``DTensor`` s (the
+    dry-run), per shard of q's layout (``sharding.per_shard``)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        from .sharding import per_shard
+        return per_shard(lambda q_, k_, v_, g_: attention_grads(
+            q_, k_, v_, g_.contiguous(), chunk), (q, k, v, grad_out), 3)
+    return attention_grads(q, k, v, grad_out.contiguous(), chunk)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, chunk, *args, **kwargs) -> int:
+    """4 Dh FLOPs (q.k and p.v) for each causal pair of each query head:
+    the work PERF.md's bound counts."""
+    B, S, H, Dh = q_shape
+    return 4 * Dh * H * B * (S * (S + 1) // 2)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Causal attention whose forward is the kernel (the plain version on
-    the CPU) and whose backward is :func:`ref.attention_grads`, ``chunk``
-    queries at a time.  Saves q, k and v."""
+    the CPU), through the custom op, and whose backward is
+    :func:`ref.attention_grads`, ``chunk`` queries at a time.  Saves q, k
+    and v."""
 
     @staticmethod
     def forward(ctx, q, k, v, chunk):
         ctx.save_for_backward(q, k, v)
         ctx.chunk = chunk
-        return _forward(q, k, v)
+        return torch.ops.repro_torch.flash_attention(q, k, v, chunk)
 
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v = ctx.saved_tensors
-        return (*attention_grads(q, k, v, grad_out.contiguous(), ctx.chunk),
-                None)
+        return (*_grads(q, k, v, grad_out, ctx.chunk), None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,10 +137,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     time (all ``S`` at once when None).
     ``flash_attention.launches`` counts the kernel launches of this
     process and ``flash_attention.launches_by_route`` each route's."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        from .sharding import attention_layout
+        q, k, v = attention_layout(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, chunk or max(q.shape[1], 1))
-    return _forward(q, k, v)
+    return torch.ops.repro_torch.flash_attention(q, k, v,
+                                                 chunk or max(q.shape[1], 1))
 
 
 def _forward(q, k, v):

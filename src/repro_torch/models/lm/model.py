@@ -52,6 +52,82 @@ NEG = -1e30
 DRAW_CHUNK = 1 << 26   # elements drawn in fp32 at a time by init_params
 
 
+# ---------------------------------------------------------------------------
+# activation-sharding context: the dry-run's cell builders set it, and the
+# model then runs on DTensors: the batch pinned after the embedding gather
+# (the reference's constraint point), the residual stream's partial sums
+# reduced, and the paths DTensor cannot shard as they are run per shard
+# (``sharded.py``).  Without it (every run on real tensors) each of these
+# points is a no-op.
+# ---------------------------------------------------------------------------
+_ACT_SHARDING: list = [None]  # (mesh, dp_axes) | None
+
+
+class activation_sharding:
+    """Inside, :func:`forward` runs on ``DTensor`` s of ``mesh``:
+    activations are redistributed at the reference's constraint points
+    (``with_sharding_constraint`` there), and the paths that DTensor
+    cannot shard as they are run per shard (``sharded.py``).
+    ``dp_axes``: the batch's mesh axes, ``"data"`` or ``("pod",
+    "data")``."""
+
+    def __init__(self, mesh, dp_axes):
+        self.ctx = (mesh, dp_axes)
+
+    def __enter__(self):
+        _ACT_SHARDING[0] = self.ctx
+
+    def __exit__(self, *exc):
+        _ACT_SHARDING[0] = None
+
+
+def _sharded(x) -> bool:
+    """A mesh is set and ``x`` is a ``DTensor`` on it."""
+    if _ACT_SHARDING[0] is None:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _reduced(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream with its partial sums reduced, on ``DTensor`` s
+    (``sharded.reduced``); ``x`` itself otherwise."""
+    if not _sharded(x):
+        return x
+    from . import sharded
+    return sharded.reduced(x)
+
+
+def _wsc_batch(x: torch.Tensor) -> torch.Tensor:
+    """Constrain dim 0 (batch) to the dp axes if divisible (on
+    ``DTensor`` s; ``x`` itself otherwise)."""
+    if not _sharded(x):
+        return x
+    from . import sharded
+    return sharded.batch(x)
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` (``sharded.embed`` on ``DTensor`` s)."""
+    if not _sharded(table):
+        return table[tokens]
+    from . import sharded
+    return sharded.embed(table, tokens)
+
+
+def _proj_out(ctx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", ctx, w)`` as one matrix product (on
+    ``DTensor`` s ``w`` laid out by ``sharded.flat_weight`` and the
+    flattened ctx's gradient by ``sharded.grad_like``)."""
+    B, S = ctx.shape[:2]
+    flat = ctx.reshape(B, S, -1)
+    if _sharded(w):
+        from . import sharded
+        flat = sharded.grad_like(flat)
+        w = sharded.flat_weight(w, 2)
+    return flat @ w.reshape(-1, w.shape[-1])
+
+
 def _dtype(cfg: LMConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
@@ -227,6 +303,20 @@ def _layer(tree, l: int):
     return tree[l]
 
 
+def _layers(tree, L: int) -> list:
+    """Every layer of a stacked parameter tree, each leaf unbound once
+    (views, no copies).  Its gradient is one stack of the layers' parts;
+    indexing each layer apart makes a whole-stack gradient per layer, and
+    the backward's bytes grow as the square of the depth."""
+    if isinstance(tree, dict):
+        parts = {k: _layers(v, L) for k, v in tree.items()}
+        return [{k: v[l] for k, v in parts.items()} for l in range(L)]
+    if _sharded(tree):
+        from . import sharded
+        tree = sharded.unstacked(tree)
+    return list(torch.unbind(tree))
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
@@ -280,8 +370,22 @@ def chunked_attention(q, k, v, chunk: int):
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product."""
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product
+    (``sharded.project`` on ``DTensor`` s)."""
+    if _sharded(w):
+        from . import sharded
+        return sharded.project(x, w)
     return (x @ w.reshape(w.shape[0], -1)).view(*x.shape[:-1], *w.shape[1:])
+
+
+def _cache_write(cache: torch.Tensor, pos: int, new: torch.Tensor) -> None:
+    """``cache[:, pos:pos + S] = new``, in place (per sequence block on a
+    ``DTensor`` cache: ``sharded.cache_write``)."""
+    if _sharded(cache):
+        from . import sharded
+        sharded.cache_write(cache, pos, new)
+        return
+    cache[:, pos:pos + new.shape[1]] = new
 
 
 def _cache_slot(cache_len: int, pos: int, S: int) -> None:
@@ -298,7 +402,7 @@ def gqa_attend(p, cfg: LMConfig, x, positions, *, cache=None,
     ``cache = (ck, cv, pos)`` (decode) k/v are written into ``ck``/``cv`` at
     ``pos`` in place and the queries attend the whole cache under the mask
     ``key <= pos + i``."""
-    B, S, D = x.shape
+    B, S, _ = x.shape
     q, k, v = _proj(x, p["w_q"]), _proj(x, p["w_k"]), _proj(x, p["w_v"])
     if cfg.qkv_bias:
         q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
@@ -313,15 +417,20 @@ def gqa_attend(p, cfg: LMConfig, x, positions, *, cache=None,
         ck, cv, pos = cache  # ck/cv [B,Smax,Hkv,Dh]; pos an int
         pos = int(pos)
         _cache_slot(ck.shape[1], pos, S)
-        ck[:, pos:pos + S] = k.to(ck.dtype)
-        cv[:, pos:pos + S] = v.to(cv.dtype)
-        kv_pos = torch.arange(ck.shape[1], device=x.device)
-        mask = kv_pos[None, :] <= (pos + torch.arange(S, device=x.device)
-                                   )[:, None]
-        ctx = _gqa_scores_ctx(q, ck, cv, mask, 1.0 / math.sqrt(cfg.head_dim))
+        _cache_write(ck, pos, k.to(ck.dtype))
+        _cache_write(cv, pos, v.to(cv.dtype))
+        if _sharded(ck):
+            from . import sharded
+            ctx = sharded.gqa_decode(q, ck, cv, pos,
+                                     1.0 / math.sqrt(cfg.head_dim))
+        else:
+            kv_pos = torch.arange(ck.shape[1], device=x.device)
+            mask = kv_pos[None, :] <= (pos + torch.arange(
+                S, device=x.device))[:, None]
+            ctx = _gqa_scores_ctx(q, ck, cv, mask,
+                                  1.0 / math.sqrt(cfg.head_dim))
         new_kv = (ck, cv)
-    out = ctx.reshape(B, S, -1) @ p["w_o"].reshape(-1, D)
-    return out, new_kv
+    return _proj_out(ctx, p["w_o"]), new_kv
 
 
 def mla_attend(p, cfg: LMConfig, x, positions, *, cache=None,
@@ -337,7 +446,7 @@ def mla_attend(p, cfg: LMConfig, x, positions, *, cache=None,
     ``q_nope W_uk`` against ``c_kv`` plus ``q_pe`` against ``k_pe``, and
     the context ``(P c_kv) W_uv``."""
     m = cfg.mla
-    B, S, D = x.shape
+    B, S, _ = x.shape
     H = cfg.n_heads
     dn, dr, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
     scale = 1.0 / math.sqrt(dn + dr)
@@ -354,30 +463,48 @@ def mla_attend(p, cfg: LMConfig, x, positions, *, cache=None,
     if cache is None:
         k_nope = _proj(c_kv, p["w_uk"])
         v = _proj(c_kv, p["w_uv"])
-        k = torch.cat([k_nope, k_pe[:, :, None].expand(B, S, H, dr)], dim=-1)
+        k_pe_h = k_pe[:, :, None].expand(B, S, H, dr)
+        if _sharded(k_nope):
+            # the shared rotary key takes the heads' layout (a local slice
+            # of a replicated tensor), so the concatenation gathers nothing
+            k_pe_h = k_pe_h.redistribute(k_nope.device_mesh,
+                                         k_nope.placements)
+        k = torch.cat([k_nope, k_pe_h], dim=-1)
         qq = torch.cat([q_nope, q_pe], dim=-1)
-        ctx = (attention(qq, k, v) if attention is not None
-               else chunked_attention(qq, k, v, cfg.attn_chunk))
+        if attention is not None:
+            ctx = attention(qq, k, v)
+        elif _sharded(qq):
+            from repro_torch.kernels.flash_attention.sharding import (
+                attention_layout, per_shard)
+            ctx = per_shard(functools.partial(chunked_attention,
+                                              chunk=cfg.attn_chunk),
+                            attention_layout(qq, k, v), 1)
+        else:
+            ctx = chunked_attention(qq, k, v, cfg.attn_chunk)
         new_kv = (c_kv, k_pe)   # the compressed cache entries
     else:
         cc, cpe, pos = cache    # cc [B,Smax,r], cpe [B,Smax,dr]
         pos = int(pos)
         _cache_slot(cc.shape[1], pos, S)
-        cc[:, pos:pos + S] = c_kv.to(cc.dtype)
-        cpe[:, pos:pos + S] = k_pe.to(cpe.dtype)
+        _cache_write(cc, pos, c_kv.to(cc.dtype))
+        _cache_write(cpe, pos, k_pe.to(cpe.dtype))
         q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
-        s_lat = torch.einsum("bshr,btr->bhst", q_abs, cc)
-        s_pe = torch.einsum("bshk,btk->bhst", q_pe, cpe)
-        scores = (s_lat + s_pe).float() * scale
-        kv_pos = torch.arange(cc.shape[1], device=x.device)
-        mask = kv_pos[None, :] <= (pos + torch.arange(S, device=x.device)
-                                   )[:, None]
-        pr = torch.softmax(scores.masked_fill(~mask, NEG), dim=-1).to(x.dtype)
-        ctx_lat = torch.einsum("bhst,btr->bshr", pr, cc)
+        if _sharded(cc):
+            from . import sharded
+            ctx_lat = sharded.mla_decode(q_abs, q_pe, cc, cpe, pos, scale)
+        else:
+            s_lat = torch.einsum("bshr,btr->bhst", q_abs, cc)
+            s_pe = torch.einsum("bshk,btk->bhst", q_pe, cpe)
+            scores = (s_lat + s_pe).float() * scale
+            kv_pos = torch.arange(cc.shape[1], device=x.device)
+            mask = kv_pos[None, :] <= (pos + torch.arange(
+                S, device=x.device))[:, None]
+            pr = torch.softmax(scores.masked_fill(~mask, NEG),
+                               dim=-1).to(x.dtype)
+            ctx_lat = torch.einsum("bhst,btr->bshr", pr, cc)
         ctx = torch.einsum("bshr,rhk->bshk", ctx_lat, p["w_uv"])
         new_kv = (cc, cpe)
-    out = ctx.reshape(B, S, -1) @ p["w_o"].reshape(-1, D)
-    return out, new_kv
+    return _proj_out(ctx, p["w_o"]), new_kv
 
 
 # ---------------------------------------------------------------------------
@@ -477,6 +604,9 @@ def moe_ffn(p, cfg: LMConfig, x, route: Routing | None = None):
     to x's dtype first, as the reference's combine is; a dropped
     assignment weighs 0).  ``route``: this layer's routing of ``x`` when
     the caller has it (:func:`moe_route`'s, or one :func:`place` made)."""
+    if route is None and _sharded(x):
+        from . import sharded
+        return sharded.moe_ffn(p, cfg, x)
     m = cfg.moe
     B, S, D = x.shape
     E, K = m.n_experts, m.top_k
@@ -542,14 +672,14 @@ def block_fn(p, cfg: LMConfig, moe: bool, x, positions, cache=None, *,
     attend = mla_attend if cfg.attention == "mla" else gqa_attend
     a, new_kv = attend(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
                        positions, cache=cache, attention=attention)
-    x = x + a
+    x = _reduced(x + a)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if moe:
         f, aux = moe_ffn(p["mlp"], cfg, h)
     else:
         f = dense_ffn(p["mlp"], cfg, h)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + f, aux, new_kv
+    return _reduced(x + f), aux, new_kv
 
 
 STACKS = (("dense_blocks", False), ("moe_blocks", True))
@@ -596,7 +726,7 @@ def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
     each layer without caches runs under :func:`_remat_wrap`."""
     _check_dtypes(cfg)
     B, S = tokens.shape
-    x = params["embed"][tokens].to(_cdtype(cfg))
+    x = _wsc_batch(_embed(params["embed"], tokens).to(_cdtype(cfg)))
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -612,8 +742,8 @@ def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
                 _block_no_cache, cfg=cfg, moe=moe, positions=positions,
                 attention=attention))
             ks, vs = [], []
-            for l in range(L):
-                x, aux, (k, v) = layer(_layer(stacked, l), x)
+            for p_l in _layers(stacked, L):
+                x, aux, (k, v) = layer(p_l, x)
                 aux_total = aux_total + aux
                 if keep_kv:
                     ks.append(k)
@@ -622,8 +752,8 @@ def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
                 new_caches[stack] = (torch.stack(ks), torch.stack(vs))
         else:
             ck, cv, pos = caches[stack]
-            for l in range(L):
-                x, aux, _ = block_fn(_layer(stacked, l), cfg, moe, x,
+            for l, p_l in enumerate(_layers(stacked, L)):
+                x, aux, _ = block_fn(p_l, cfg, moe, x,
                                      positions, cache=(ck[l], cv[l], pos))
                 aux_total = aux_total + aux
             new_caches[stack] = (ck, cv, pos)
@@ -648,7 +778,11 @@ def mtp_head(params: Params, cfg: LMConfig, hidden, tokens):
     (h_t, emb(token_{t+1})).  hidden ``[B,S,D]`` (``forward``'s), tokens
     ``[B,S]`` -> logits ``[B,S-1,V]``."""
     p = params["mtp"]
-    emb_next = params["embed"][tokens[:, 1:]].to(hidden.dtype)  # [B,S-1,D]
+    # pinned like forward's gather: DTensor propagates layouts forward
+    # only, and the table's would replicate the batch (the reference's
+    # partitioner takes it from ``hidden`` through the concatenation)
+    emb_next = _wsc_batch(_embed(params["embed"], tokens[:, 1:])
+                          .to(hidden.dtype))
     h = torch.cat([hidden[:, :-1], emb_next], dim=-1) @ p["proj"]
     B, Sm1, _ = h.shape
     pos = torch.arange(Sm1, device=h.device).expand(B, Sm1)

@@ -10,6 +10,7 @@ from repro_torch.train import (adafactor_init, adamw_init,
                                clip_by_global_norm, compress_grads,
                                make_optimizer, tree_map, value_and_grad)
 
+from . import model as _model
 from .config import LMConfig
 from .model import forward, logits_fn, mtp_head, set_cache_pos
 
@@ -22,7 +23,13 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logit is picked with ``gather``: the reference's one-hot contraction
     adds exact zeros to it, so this is the same number without a
     ``[B, S, V]`` one-hot (5 GB at qwen2's vocabulary and 4 x 2048
-    tokens)."""
+    tokens).  On ``DTensor`` s whose vocabulary is sharded it is
+    ``sharded.cross_entropy``."""
+    if _model._sharded(logits):
+        from .sharded import cross_entropy as sharded_ce
+        out = sharded_ce(logits, targets)
+        if out is not None:
+            return out
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets.long()[..., None])[..., 0]
@@ -74,10 +81,15 @@ def make_train_step(cfg: LMConfig, lr: float = 3e-4):
         if B % n:
             raise ValueError(f"batch {B} does not split into {n} "
                              f"microbatches")
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
+        acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                       params)
         tot, mets = 0.0, {"loss": 0.0, "aux": 0.0}
-        for toks in tokens.reshape(n, B // n, -1):
+        if _model._sharded(tokens):
+            from .sharded import microbatches
+            parts = microbatches(tokens, n)
+        else:
+            parts = tokens.reshape(n, B // n, -1)
+        for toks in parts:
             (t, m), g = grad_fn(params, cfg, toks)
             for a, gi in zip(tree_flatten(acc), tree_flatten(g)):
                 a.add_(gi)
@@ -117,8 +129,10 @@ def make_prefill_step(cfg: LMConfig, max_seq: int | None = None, *,
         smax = max_seq or S
         caches = {}
         for stack, (k, v) in kvs.items():  # k/v [L,B,S,...]
-            pad = (0, 0) * (k.dim() - 3) + (0, smax - S)
-            caches[stack] = (F.pad(k, pad), F.pad(v, pad), S)
+            if smax > S:
+                pad = (0, 0) * (k.dim() - 3) + (0, smax - S)
+                k, v = F.pad(k, pad), F.pad(v, pad)
+            caches[stack] = (k, v, S)
         return logits, caches
 
     return prefill

@@ -1,4 +1,5 @@
-"""Shared small utilities: padding, bucketing, device selection."""
+"""Shared small utilities: padding, bucketing, device selection, and the
+dry-run's human-readable sizes."""
 from __future__ import annotations
 
 import math
@@ -36,3 +37,19 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
                            "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB", "PiB"):
+        if abs(n) < 1024.0:
+            return f"{n:.2f}{unit}"
+        n /= 1024.0
+    return f"{n:.2f}EiB"
+
+
+def human_count(n: float) -> str:
+    for unit in ("", "K", "M", "G", "T", "P"):
+        if abs(n) < 1000.0:
+            return f"{n:.3g}{unit}"
+        n /= 1000.0
+    return f"{n:.3g}E"

@@ -24,7 +24,7 @@ import jax.numpy as jnp
 from repro.configs.registry import get_arch as jax_get_arch
 from repro.models.lm import model as jax_model
 from repro.models.lm import steps as jax_steps
-from repro_torch.configs.registry import ARCHS, NOT_PORTED, get_arch
+from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.launch import lm_serve
 from repro_torch.models.lm import model
@@ -280,11 +280,12 @@ def test_configs_match_reference(arch):
 
 def test_registry_raises_for_what_is_not_ported():
     from repro.configs.registry import ARCHS as JAX_ARCHS
-    assert set(ARCHS) | set(NOT_PORTED) == set(JAX_ARCHS)
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_arch(name)
-    assert set(NOT_PORTED) == {"deepseek-v3-opt", "ripple-papers"}
+    # every arch of the reference is ported: nothing is refused by name
+    assert set(ARCHS) == set(JAX_ARCHS)
+    assert get_arch("deepseek-v3-opt").__name__ == \
+        "repro_torch.configs.deepseek_v3_opt"
+    assert get_arch("ripple-papers").__name__ == \
+        "repro_torch.configs.ripple_stream"
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
     for name in ("olmoe-1b-7b", "deepseek-v3-671b", "dlrm-rm2"):
