@@ -152,8 +152,10 @@ serves serve_p99 (batch 512), serve_bulk (262,144) and retrieval_cand
 (1 query x 1,000,000 candidates): 26 embedding_bag launches a forward, all
 on its narrow route, and nothing else, outputs (and losses) within
 relative L2 1e-5 of the same functions with embedding_bag_ref; ms,
-items/s and peak GB.  Each model
-is freed before the next.
+items/s and peak GB; serve_p99's host ms also with each bag's launch
+called directly, without the custom op's dispatch (a ``bag dispatch``
+line; those comparison launches are not counted).  Each model is freed
+before the next.
 Phase 8 trains.  (a) qwen2-1.5b at its published size (28 layers, d_model
 1536, 12 query heads over 2 kv heads of 128, ff 8960, vocab 151,936,
 tied embeddings; 1.54 B bf16 parameters from a seed, AdamW with fp32
@@ -196,16 +198,21 @@ the GNN path: every count must stay 0.
 
 Phase 10 is the dry-run (``repro_torch.launch.dryrun``): its CLI runs
 with ``--device cuda`` in subprocesses for ``--arch extra --mesh both``
-and three cells of the 16 x 16 mesh (qwen2-1.5b train_4k, olmoe-1b-7b
-decode_32k, deepseek-v3-671b prefill_32k), each record printed as a
-``dryrun_record`` line, while three groundings run on the card: phase
-8's qwen2-1.5b step (4 x 2048, bf16, AdamW, remat "nothing") and the
-prefill of the same tokens, each measured for its peak allocated bytes
-and its FLOPs under FlopCounterMode, and one propagate call of phase 6's ``dist`` gc-s session (one NCCL rank) for
-its peak, each against the dry-run's trace of the same call as rank 0
-of a 1 x 1 fake mesh: argument bytes equal, FLOPs to 1e-9, peaks within
-10% (``GROUND``; a ``dryrun grounding`` line each).  A non-zero exit of
-any subprocess fails the phase.
+and, on the 16 x 16 mesh, three LM cells (qwen2-1.5b train_4k,
+olmoe-1b-7b decode_32k, deepseek-v3-671b prefill_32k), DLRM-RM2's four,
+dimenet/ogb_products (2^30 triplet slots) and schnet-part's two, each
+record printed as a ``dryrun_record`` line, while six groundings run on
+the card: phase 8's qwen2-1.5b step (4 x 2048, bf16, AdamW, remat
+"nothing") and the prefill of the same tokens, phase 8's DLRM-RM2 step
+(B 65,536; its 26 bags a step through the custom op, narrow) and phase
+9's pna/full_graph_sm step, each measured for its peak allocated bytes
+and its FLOPs under FlopCounterMode; one propagate call of phase 6's
+``dist`` gc-s session (one NCCL rank) for its peak; and schnet-part v2's
+step at phase 9's cut on one NCCL rank for both.  Each is held against
+the dry-run's trace of the same call as rank 0 of a 1 x 1 fake mesh:
+argument bytes equal, FLOPs to 1e-9, peaks within 10% (``GROUND``; a
+``dryrun grounding`` line each).  A non-zero exit of any subprocess
+fails the phase.
 
 Phase 1 prints ptxas's registers and spills for every kernel
 instantiation; a spill in a hop kernel fails the run.  Any fault ends the
@@ -2878,9 +2885,13 @@ def run_dlrm(counters: dict) -> dict:
     no other kernel; the output (and the loss of the serving cells) is
     held to the same function with embedding_bag_ref at relative L2
     DLRM_BAR; then it is timed (host clock around synchronisations, the
-    launches counted again)."""
+    launches counted again).  serve_p99's forward is timed twice more, in
+    turns: with each bag's launch called directly (``ops._forward``, the
+    dispatch before the bag was a custom op: comparison launches, not
+    counted) and again through the op."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.dlrm_rm2 import dlrm_model_flops
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     from repro_torch.models.recsys.dlrm import (dlrm_forward, dlrm_loss,
                                                 init_dlrm, retrieval_scores)
@@ -2949,6 +2960,15 @@ def run_dlrm(counters: dict) -> dict:
                                bag=embedding_bag_ref)
         iters = 25 if B <= 4096 else 5
         ms = timed(forward, iters)
+        dispatch = None
+        if name == "serve_p99":
+            direct_ms = host_ms(lambda: dlrm_forward(
+                params, cfg, dense, idx,
+                bag=lambda t, i: bag_ops._forward(t, i, None)),
+                iters=iters, warmup=1)
+            dispatch = dict(op_ms=[ms, host_ms(forward, iters=iters,
+                                               warmup=1)],
+                            direct_ms=direct_ms)
         cells.append(dict(
             cell=name, batch=B, ms=ms, items_per_s=B / (ms * 1e-3),
             device_ms=device_ms(forward, iters=iters, warmup=1),
@@ -2957,7 +2977,8 @@ def run_dlrm(counters: dict) -> dict:
             rel_l2=rel_l2(out, plain),
             loss=float(loss), loss_rel=abs(float(loss) - float(loss_plain))
             / abs(float(loss_plain)),
-            finite=bool(torch.isfinite(out).all()), shape=list(out.shape)))
+            finite=bool(torch.isfinite(out).all()), shape=list(out.shape),
+            bag_dispatch=dispatch))
         del dense, idx, labels, out, plain
     q_dense = torch.randn((1, cfg.n_dense), generator=gen, device=DEVICE)
     q_idx = sparse(1)
@@ -2996,6 +3017,9 @@ def run_dlrm(counters: dict) -> dict:
         log(f"dlrm-rm2 {c['cell']}: {c['ms']:.3f} ms ({c['items_per_s']:.0f} "
             f"items/s), relative L2 against embedding_bag_ref "
             f"{c['rel_l2']}")
+        if c.get("bag_dispatch"):
+            log(f"dlrm-rm2 {c['cell']} bag dispatch (host ms, in turns): "
+                f"{json.dumps(c['bag_dispatch'])}")
     log(f"dlrm-rm2: {n_params} parameters ({param_bytes / 1e9:.3f} GB), "
         f"peak {peak / 1e9:.3f} GB")
     log("dlrm_session", json.dumps(result))
@@ -3499,6 +3523,25 @@ def run_gnn_cell(counters: dict, arch: str, cell: str, data) -> dict:
     return result
 
 
+def part_graph(mod):
+    """The schnet-part cell's inputs at SchNet's ogb_products cut: the
+    batch (GNN_TRAIN's seed), SchNet's parameters (same seed), and the real
+    edges' ends and lengths on the host."""
+    from repro_torch.configs.gnn_common import SHAPES, make_gnn_batch
+    shape = SHAPES["ogb_products"]
+    data = make_gnn_batch(shape, device=DEVICE, seed=GNN_TRAIN["seed"],
+                          cut=gnn_cut("schnet", "ogb_products"))
+    b, m_real = data.batch, data.sizes["m_real"]
+    params = mod.INIT(torch.Generator(device=DEVICE).manual_seed(
+        GNN_TRAIN["seed"]), d_in=shape["d"], d_out=shape["classes"],
+        device=DEVICE)
+    with torch.no_grad():
+        src, dst = b.src[:m_real].long(), b.dst[:m_real].long()
+        vec = b.positions[src] - b.positions[dst]
+        dist_ = torch.sqrt((vec * vec).sum(-1) + 1e-12).cpu().numpy()
+    return data, params, src.cpu().numpy(), dst.cpu().numpy(), dist_
+
+
 def run_schnet_part(counters: dict) -> dict:
     """schnet-part on a one-rank NCCL group (NCCL refuses two ranks on one
     card) at SchNet's ogb_products cut: ``make_partitioned_schnet`` (v1)
@@ -3511,30 +3554,20 @@ def run_schnet_part(counters: dict) -> dict:
     import torch.distributed as dist
     from repro_torch.ckpt.checkpoint import tree_flatten, tree_unflatten
     from repro_torch.configs import get_arch
-    from repro_torch.configs.gnn_common import (SHAPES, make_gnn_batch,
-                                                make_gnn_loss)
+    from repro_torch.configs.gnn_common import SHAPES, make_gnn_loss
     from repro_torch.configs.schnet_part import capacities
     from repro_torch.models.gnn import partitioned as part
     from repro_torch.train import adamw_init
     mod = get_arch("schnet")
-    cut = gnn_cut("schnet", "ogb_products")
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    data = make_gnn_batch(SHAPES["ogb_products"], device=DEVICE,
-                          seed=GNN_TRAIN["seed"], cut=cut)
+    data, params, src, dst, dist_ = part_graph(mod)
     b, sz = data.batch, data.sizes
     n, m_real = sz["n"], sz["m_real"]
-    params = mod.INIT(torch.Generator(device=DEVICE).manual_seed(
-        GNN_TRAIN["seed"]), d_in=SHAPES["ogb_products"]["d"],
-        d_out=SHAPES["ogb_products"]["classes"], device=DEVICE)
     with torch.no_grad():
         dense = float(make_gnn_loss(mod.FORWARD, "node_ce")(params, b,
                                                             data.labels))
-        src, dst = b.src[:m_real].long(), b.dst[:m_real].long()
-        vec = b.positions[src] - b.positions[dst]
-        dist_ = torch.sqrt((vec * vec).sum(-1) + 1e-12).cpu().numpy()
-    src, dst = src.cpu().numpy(), dst.cpu().numpy()
     caps = capacities(1, n=n, m=m_real)
     hp = dict(d_in=SHAPES["ogb_products"]["d"],
               d_out=SHAPES["ogb_products"]["classes"], **mod.HP)
@@ -3633,12 +3666,17 @@ def run_gnn_train(counters: dict) -> dict:
 
 
 # ---- phase 10: the dry-run ---------------------------------------------------
-# the dry-run's own CLI, in subprocesses: --arch extra on both meshes and
-# three cells on the 16 x 16 mesh
-DRYRUN = (["--arch", "extra", "--mesh", "both"],
-          ["--arch", "qwen2-1.5b", "--shape", "train_4k"],
-          ["--arch", "olmoe-1b-7b", "--shape", "decode_32k"],
-          ["--arch", "deepseek-v3-671b", "--shape", "prefill_32k"])
+# the dry-run's own CLI, in subprocesses, and the records each must write:
+# --arch extra on both meshes, and on the 16 x 16 mesh three LM cells,
+# DLRM-RM2's four, DimeNet's largest trace (2^30 triplet slots) and
+# schnet-part's two
+DRYRUN = ((["--arch", "extra", "--mesh", "both"], 2),
+          (["--arch", "qwen2-1.5b", "--shape", "train_4k"], 1),
+          (["--arch", "olmoe-1b-7b", "--shape", "decode_32k"], 1),
+          (["--arch", "deepseek-v3-671b", "--shape", "prefill_32k"], 1),
+          (["--arch", "dlrm-rm2"], 4),
+          (["--arch", "dimenet", "--shape", "ogb_products"], 1),
+          (["--arch", "schnet-part"], 2))
 # grounding: the dry-run's prediction of one rank against the card, the
 # same code on a 1 x 1 mesh: FLOPs to 1e-9 (the same formulas count the
 # same ops), the peak to 10% (the trace counts live storage, the card's
@@ -3656,6 +3694,16 @@ if req["cell"] == "lm":
     from repro_torch.configs.registry import get_arch
     built = _mk_builder(get_arch(req["arch"]).CONFIG, req["kind"],
                         req["seq"], req["batch"])(mesh)
+elif req["cell"] == "dlrm":
+    from repro_torch.configs.dlrm_rm2 import CONFIG, build_train
+    built = build_train(CONFIG, req["batch"])(mesh)
+elif req["cell"] == "gnn":
+    from repro_torch.configs.registry import get_arch
+    built = next(c for c in get_arch(req["arch"]).CELLS
+                 if c.shape == req["shape"]).build(mesh)
+elif req["cell"] == "part":
+    from repro_torch.configs.schnet_part import build_v2
+    built = build_v2(mesh, n=req["n"], m=req["m"], cap2=req["cap2"])
 else:
     from repro_torch.configs.ripple_stream import build_ripple
     geo = req["geometry"]
@@ -3728,12 +3776,40 @@ def held_prediction(label: str, pred: dict, flops, peak: int,
     return out
 
 
+def card_step(step, args) -> tuple[int, int, int]:
+    """``step(*args)`` on the card: one call's peak allocated bytes after a
+    warm-up call (what lived before it, less its arguments, taken off),
+    one more call's FLOPs under FlopCounterMode, and the arguments'
+    bytes."""
+    from torch.utils.flop_counter import FlopCounterMode
+    arg_bytes = storage_bytes(args)
+    out = step(*args)
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before + arg_bytes
+    del out
+    with FlopCounterMode(display=False) as counter:
+        out = step(*args)
+    torch.cuda.synchronize()
+    del out
+    return peak, counter.get_total_flops(), arg_bytes
+
+
+def prediction(**req) -> subprocess.Popen:
+    """The dry-run's trace of the cell ``req`` names (``_PREDICT``) as one
+    rank of a 1 x 1 mesh, in a subprocess."""
+    return spawn_port(["-c", _PREDICT, json.dumps(req)])
+
+
 def lm_prediction(kind: str) -> subprocess.Popen:
     """The dry-run's trace of qwen2-1.5b's ``kind`` cell function at
     TRAIN's batch and sequence, as one rank of a 1 x 1 mesh."""
-    return spawn_port(["-c", _PREDICT, json.dumps(dict(
-        cell="lm", kind=kind, arch=TRAIN["arch"], seq=TRAIN["seq"],
-        batch=TRAIN["batch"]))])
+    return prediction(cell="lm", kind=kind, arch=TRAIN["arch"],
+                      seq=TRAIN["seq"], batch=TRAIN["batch"])
 
 
 def ground_lm(pred_proc: subprocess.Popen, kind: str) -> dict:
@@ -3744,7 +3820,6 @@ def ground_lm(pred_proc: subprocess.Popen, kind: str) -> dict:
     before it, less its arguments, taken off), and one call's FLOPs under
     FlopCounterMode; against the dry-run's trace of the same call as one
     rank of a 1 x 1 mesh."""
-    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_arch
     from repro_torch.models.lm import model, steps
     cfg = get_arch(TRAIN["arch"]).CONFIG
@@ -3759,21 +3834,8 @@ def ground_lm(pred_proc: subprocess.Popen, kind: str) -> dict:
     else:
         args = (params, tokens)
         step = steps.make_prefill_step(cfg, max_seq=TRAIN["seq"])
-    arg_bytes = storage_bytes(args)
-    out = step(*args)
-    del out
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
-    out = step(*args)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - before + arg_bytes
-    del out
-    with FlopCounterMode(display=False) as counter:
-        out = step(*args)
-    torch.cuda.synchronize()
-    flops = counter.get_total_flops()
-    del out, args, params
+    peak, flops, arg_bytes = card_step(step, args)
+    del args, params
     gc.collect()
     torch.cuda.empty_cache()
     pred = json.loads(finished(pred_proc, f"lm {kind} prediction")
@@ -3823,8 +3885,7 @@ def ground_ripple(counters: dict) -> dict:
                             feat_cap=int(db.ints.shape[1]),
                             dims=list(eng.workload.spec.dims),
                             donate=eng.donate)
-            pred_proc = spawn_port(["-c", _PREDICT, json.dumps(
-                dict(cell="ripple", geometry=geometry))])
+            pred_proc = prediction(cell="ripple", geometry=geometry)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             before = torch.cuda.memory_allocated()
@@ -3845,14 +3906,131 @@ def ground_ripple(counters: dict) -> dict:
     return out
 
 
+def ground_dlrm(pred_proc: subprocess.Popen, counters: dict) -> dict:
+    """Phase 8's DLRM-RM2 train_batch step (B 65,536, phase 8's seeded
+    inputs, AdamW) on the card: its bags launch embedding_bag 26 times a
+    step through the custom op, all narrow; against the trace of the
+    cell's ``build_train`` step as one rank of a 1 x 1 mesh.  Both sides
+    count the bags' FLOPs by the custom op's formula."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.dlrm_rm2 import make_train_step
+    from repro_torch.models.recsys.dlrm import init_dlrm
+    from repro_torch.train import adamw_init
+    cfg = get_arch("dlrm-rm2").CONFIG
+    B = DLRM_TRAIN["batch"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    params = init_dlrm(gen, cfg, device=DEVICE)
+    dense = torch.randn((B, cfg.n_dense), generator=gen, device=DEVICE)
+    idx = torch.stack([torch.randint(0, v, (B, cfg.multi_hot), generator=gen,
+                                     device=DEVICE)
+                       for v in cfg.vocab_sizes], 1).to(torch.int32)
+    labels = torch.bernoulli(torch.full((B,), 0.5, device=DEVICE),
+                             generator=gen)
+    reset_counts(counters)
+    peak, flops, arg_bytes = card_step(
+        make_train_step(cfg, lr=DLRM_TRAIN["lr"]),
+        (params, adamw_init(params), dense, idx, labels))
+    bag = counters["embedding_bag"]
+    if bag.launches != 3 * cfg.n_sparse \
+            or bag.launches_by_route["narrow"] != bag.launches:
+        raise AssertionError(f"dlrm grounding: 3 steps launched "
+                             f"embedding_bag {bag.launches_by_route}")
+    del params, dense, idx, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    pred = json.loads(finished(pred_proc, "dlrm prediction")
+                      .splitlines()[-1])
+    return held_prediction(f"dlrm-rm2 train_batch {B}", pred, flops, peak,
+                           arg_bytes)
+
+
+def ground_pna(pred_proc: subprocess.Popen) -> dict:
+    """Phase 9's pna/full_graph_sm step (published widths, cut 1, seed 0)
+    on the card against the trace of the dry-run's pna/full_graph_sm cell
+    as one rank of a 1 x 1 mesh, whose per-shard paths (gathers,
+    scatter-sum, scatter-max, the loss) run on a group of one rank."""
+    from repro_torch.configs import get_arch
+    gc.collect()
+    torch.cuda.empty_cache()
+    built = get_arch("pna").cells()["full_graph_sm"](
+        DEVICE, seed=GNN_TRAIN["seed"])
+    peak, flops, arg_bytes = card_step(built.step, built.args)
+    del built
+    gc.collect()
+    torch.cuda.empty_cache()
+    pred = json.loads(finished(pred_proc, "pna prediction")
+                      .splitlines()[-1])
+    return held_prediction("pna full_graph_sm", pred, flops, peak,
+                           arg_bytes)
+
+
+def part_prediction() -> subprocess.Popen:
+    """The trace of ``schnet_part.build_v2`` at SchNet's ogb_products cut
+    on one rank: every edge is the one (source, destination) pair's, so
+    cap2 is the real edge count."""
+    from repro_torch.configs.gnn_common import SHAPES, cell_sizes
+    sz = cell_sizes(SHAPES["ogb_products"], gnn_cut("schnet",
+                                                    "ogb_products"))
+    return prediction(cell="part", n=sz["n"], m=sz["m_real"],
+                      cap2=sz["m_real"])
+
+
+def ground_part(pred_proc: subprocess.Popen) -> dict:
+    """schnet-part v2 on one NCCL rank at phase 9's cut and inputs: one
+    train step on the card against ``build_v2``'s trace at the same n and
+    cap2 as one rank of a 1 x 1 mesh (``part_prediction``).  The two run
+    the same step, so FLOPs are held too."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_common import SHAPES
+    from repro_torch.models.gnn import partitioned as part
+    from repro_torch.train import adamw_init
+    mod = get_arch("schnet")
+    gc.collect()
+    torch.cuda.empty_cache()
+    data, params, src, dst, dist_ = part_graph(mod)
+    n = data.sizes["n"]
+    with tempfile.TemporaryDirectory(prefix="part_store_") as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            edges2, n_local, cap2 = part.route_graph_for_push_v2(
+                n, src, dst, dist_, 1)
+            if cap2 != data.sizes["m_real"]:
+                raise AssertionError(f"schnet-part grounding: cap2 {cap2}")
+            v2 = part.make_partitioned_schnet_v2(
+                n_local=n_local, cap2=cap2, d_in=SHAPES["ogb_products"]["d"],
+                d_out=SHAPES["ogb_products"]["classes"], **mod.HP)
+            args = (params, adamw_init(params), data.batch.node_feat,
+                    part.rank_edges(edges2, 0, DEVICE), data.labels)
+            peak, flops, arg_bytes = card_step(v2.train_step, args)
+            del args
+        finally:
+            dist.destroy_process_group()
+    del data, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    pred = json.loads(finished(pred_proc, "schnet-part prediction")
+                      .splitlines()[-1])
+    out = held_prediction(f"schnet-part v2 (NCCL, world 1, cap2 {cap2})",
+                          pred, flops, peak, arg_bytes)
+    out["cap2"] = cap2
+    return out
+
+
 def run_dryrun(counters: dict, card: str) -> dict:
     """Phase 10: the dry-run.  Its CLI (``python -m
     repro_torch.launch.dryrun --device cuda``) runs in subprocesses for
-    DRYRUN's cells while the three groundings run on the card: the
-    prediction for phase 8's qwen2-1.5b step, for qwen2-1.5b's prefill of
-    the same tokens and for one propagate call of phase 6's ``dist`` gc-s
-    session, each traced in a subprocess of its own (the fake process group a trace runs on takes its process).  Each
-    record prints as a ``dryrun_record`` line; a non-zero exit of any
+    DRYRUN's cells while six groundings run on the card: the predictions
+    for phase 8's qwen2-1.5b step, for qwen2-1.5b's prefill of the same
+    tokens, for one propagate call of phase 6's ``dist`` gc-s session, for
+    phase 8's DLRM-RM2 step, for phase 9's pna/full_graph_sm step and for
+    schnet-part v2's step at phase 9's cut, each traced in a subprocess of
+    its own (the fake process group a trace runs on takes its process).
+    Each record prints as a ``dryrun_record`` line; a non-zero exit of any
     subprocess fails the phase."""
     t0 = time.perf_counter()
     reset_counts(counters)
@@ -3861,11 +4039,18 @@ def run_dryrun(counters: dict, card: str) -> dict:
                                str(Path(tempfile.gettempdir())
                                    / f"dryrun_{os.getpid()}_{i}.jsonl")]
                               + args))
-            for i, args in enumerate(DRYRUN)]
+            for i, (args, _) in enumerate(DRYRUN)]
     preds = {kind: lm_prediction(kind) for kind in ("train", "prefill")}
+    preds.update(dlrm=prediction(cell="dlrm", batch=DLRM_TRAIN["batch"]),
+                 pna=prediction(cell="gnn", arch="pna",
+                                shape="full_graph_sm"),
+                 part=part_prediction())
     lm = ground_lm(preds["train"], "train")
     prefill = ground_lm(preds["prefill"], "prefill")
     ripple = ground_ripple(counters)
+    dlrm = ground_dlrm(preds["dlrm"], counters)
+    pna = ground_pna(preds["pna"])
+    part = ground_part(preds["part"])
     records = []
     for i, (args, proc) in enumerate(runs):
         out = finished(proc, f"dryrun {' '.join(args)}", timeout=1200)
@@ -3878,7 +4063,7 @@ def run_dryrun(counters: dict, card: str) -> dict:
             log("dryrun_record", json.dumps(rec))
             records.append(rec)
         path.unlink()
-    want = 2 + len(DRYRUN) - 1
+    want = sum(n for _, n in DRYRUN)
     if len(records) != want:
         raise AssertionError(f"dryrun: {len(records)} records, expected "
                              f"{want}")
@@ -3893,9 +4078,13 @@ def run_dryrun(counters: dict, card: str) -> dict:
         f"{lm['peak_ratio']:.4f}; prefill flops ratio "
         f"{prefill['flops_ratio']:.12f}, peak ratio "
         f"{prefill['peak_ratio']:.4f}; ripple peak ratio "
-        f"{ripple['peak_ratio']:.4f}")
-    return dict(lm=lm, prefill=prefill, ripple=ripple, records=records,
-                wall_s=wall)
+        f"{ripple['peak_ratio']:.4f}; dlrm flops ratio "
+        f"{dlrm['flops_ratio']:.12f}, peak ratio {dlrm['peak_ratio']:.4f}; "
+        f"pna flops ratio {pna['flops_ratio']:.12f}, peak ratio "
+        f"{pna['peak_ratio']:.4f}; schnet-part flops ratio "
+        f"{part['flops_ratio']:.12f}, peak ratio {part['peak_ratio']:.4f}")
+    return dict(lm=lm, prefill=prefill, ripple=ripple, dlrm=dlrm, pna=pna,
+                part=part, records=records, wall_s=wall)
 
 
 def prepare() -> tuple[str, dict]:

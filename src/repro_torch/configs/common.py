@@ -188,16 +188,3 @@ def dp_size_of(mesh) -> int:
     if "pod" in shape:
         n *= shape["pod"]
     return n
-
-
-def cells_not_ported(module: str):
-    """A config module's ``__getattr__`` while its dry-run cells are not
-    ported: ``CELLS`` raises ``NotImplementedError`` naming the ROADMAP
-    item that ports them (nothing stands in for them)."""
-    def __getattr__(name):
-        if name == "CELLS":
-            raise NotImplementedError(
-                f"{module}: the dry-run cells are not ported yet "
-                f"(ROADMAP.md Queue 1 item 5.4)")
-        raise AttributeError(f"module {module!r} has no attribute {name!r}")
-    return __getattr__

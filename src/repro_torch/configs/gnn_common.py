@@ -1,4 +1,4 @@
-"""The GNN train step and its cells' inputs, the port of ``repro``'s
+"""The GNN train step and its cells, the port of ``repro``'s
 ``configs/gnn_common.py``.
 
 Shapes (assigned):
@@ -7,12 +7,15 @@ Shapes (assigned):
   ogb_products   n=2,449,029 m=61.9M d=100    (full-batch-large train)
   molecule       30 nodes / 64 edges x batch 128 (graph-level regression)
 
-The reference's ``build_gnn_train`` describes a cell abstractly for its
-dry run; :func:`build_gnn_train` here materialises one on a device --
-parameters, AdamW state, a synthetic batch drawn from a seed -- with an
-optional ``cut`` of n and m for a shape that does not fit one card.  The
-dry-run structures (``gnn_cells``, ``Cell``, ``Built``) are not ported
-yet (ROADMAP.md Queue 1, item 5.3).
+Two builders of a cell.  :func:`build_gnn_train`, the reference's, describes
+it for the dry-run: stand-ins padded to ``PAD``, node arrays ``Spec(all
+axes, None)``, edge and triplet arrays ``Spec(all axes)`` (GNNs have no
+tensor-parallel dim: every mesh axis flattened shards the rows), parameters
+and AdamW state replicated, labels sharded for ``node_ce`` and replicated
+for ``graph_mse``; its step runs per shard (``models/gnn/sharded.py``).
+:func:`materialize_gnn_train` makes one on a device -- parameters, AdamW
+state, a synthetic batch drawn from a seed -- with an optional ``cut`` of
+n and m for a shape that does not fit one card.
 """
 from __future__ import annotations
 
@@ -20,11 +23,15 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch.models.gnn.common import GraphBatch, scatter_sum
 from repro_torch.models.gnn.sampler import NeighborSampler, sampled_shape_caps
-from repro_torch.train import adamw_init, adamw_update, value_and_grad
-from repro_torch.utils import next_bucket
+from repro_torch.train import (AdamWState, adamw_init, adamw_update,
+                               value_and_grad)
+from repro_torch.utils import is_dtensor, next_bucket
+
+from .common import SDS, Built, Cell, Spec, axis_names, sds
 
 SHAPES = {
     "full_graph_sm": dict(n=2708, m=10556, d=1433, classes=16, kind="train"),
@@ -60,21 +67,32 @@ def split_params(params: dict) -> tuple[dict, dict]:
     return train, aux
 
 
+def node_ce_terms(out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each node's cross-entropy of its logits ``out``, taken in at least
+    fp32 through logsumexp."""
+    logits = out.to(torch.promote_types(out.dtype, torch.float32))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[:, None])[:, 0]
+    return lse - gold
+
+
 def make_gnn_loss(forward_fn, loss_kind: str, n_graphs: int | None = None):
     """``(params, batch, labels, *extra) -> loss``, a 0-d tensor.
-    ``"node_ce"``: the mean cross-entropy of every node's logits, taken in
-    at least fp32 through logsumexp.  ``"graph_mse"``: each graph's summed
-    first output against its label; a node whose ``graph_id`` is
-    ``n_graphs`` (padding) is left out, as the reference's segment sum
-    drops that out-of-range id."""
+    ``"node_ce"``: the mean of :func:`node_ce_terms` over every node.
+    ``"graph_mse"``: each graph's summed first output against its label; a
+    node whose ``graph_id`` is ``n_graphs`` (padding) is left out, as the
+    reference's segment sum drops that out-of-range id.  A batch of
+    ``DTensor`` s (the dry-run's cells) goes through
+    ``models/gnn/sharded.train_loss``."""
 
     def loss_fn(params, batch, labels, *extra):
+        if is_dtensor(batch.node_feat):
+            from repro_torch.models.gnn.sharded import train_loss
+            return train_loss(forward_fn, loss_kind, n_graphs, params, batch,
+                              labels, *extra)
         out = forward_fn(params, batch, *extra)
         if loss_kind == "node_ce":
-            logits = out.to(torch.promote_types(out.dtype, torch.float32))
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, labels.long()[:, None])[:, 0]
-            return (lse - gold).mean()
+            return node_ce_terms(out, labels).mean()
         energy = scatter_sum(out[:, 0], batch.graph_id, n_graphs + 1)
         return ((energy[:n_graphs] - labels) ** 2).mean()
 
@@ -252,9 +270,9 @@ def _reduced(shape: dict, n: int, m: int, t: int, cut: int) -> dict:
     return out
 
 
-def build_gnn_train(arch: str, init_fn, forward_fn, shape: dict, *,
-                    molecular: bool, with_triplets: bool = False,
-                    d_hidden: int, n_layers: int):
+def materialize_gnn_train(arch: str, init_fn, forward_fn, shape: dict, *,
+                          molecular: bool, with_triplets: bool = False,
+                          d_hidden: int, n_layers: int):
     """Builder of one GNN cell, materialised: ``builder(device="cuda", *,
     seed=0, cut=1, data=None)`` returns the step, its arguments (params
     drawn from ``seed``, AdamW state, the batch, labels and DimeNet's
@@ -295,9 +313,115 @@ def build_gnn_train(arch: str, init_fn, forward_fn, shape: dict, *,
 def cell_builders(arch: str, init_fn, forward_fn, *, molecular: bool,
                   with_triplets: bool = False, d_hidden: int,
                   n_layers: int) -> dict:
-    """Every shape's builder of ``arch``, by shape name."""
-    return {name: build_gnn_train(arch, init_fn, forward_fn, shape,
-                                  molecular=molecular,
-                                  with_triplets=with_triplets,
-                                  d_hidden=d_hidden, n_layers=n_layers)
+    """Every shape's materialising builder of ``arch``, by shape name."""
+    return {name: materialize_gnn_train(arch, init_fn, forward_fn, shape,
+                                        molecular=molecular,
+                                        with_triplets=with_triplets,
+                                        d_hidden=d_hidden, n_layers=n_layers)
             for name, shape in SHAPES.items()}
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's cells
+# ---------------------------------------------------------------------------
+def all_axes(mesh) -> tuple:
+    return axis_names(mesh)
+
+
+def _graph_specs(mesh, *, molecular: bool, n_graphs: int | None = None):
+    ax = all_axes(mesh)
+    return GraphBatch(
+        node_feat=Spec(ax, None), src=Spec(ax), dst=Spec(ax),
+        edge_mask=Spec(ax), positions=Spec(ax, None) if molecular else None,
+        graph_id=Spec(ax) if n_graphs else None)
+
+
+def _graph_abstract(n, m, d, *, molecular, n_graphs=None):
+    return GraphBatch(
+        node_feat=sds((n, d)), src=sds((m,), torch.int32),
+        dst=sds((m,), torch.int32), edge_mask=sds((m,)),
+        positions=sds((n, 3)) if molecular else None,
+        graph_id=sds((n,), torch.int32) if n_graphs else None)
+
+
+def _map_sds(fn, tree):
+    """``fn`` of each :class:`SDS` leaf of ``tree`` (a NamedTuple itself)."""
+    return tree_map(fn, tree, is_leaf=lambda x: isinstance(x, SDS))
+
+
+def abstract(tree):
+    """The :class:`SDS` tree of a tree of tensors (``init_fn`` run on the
+    meta device)."""
+    return tree_map(lambda t: sds(t.shape, t.dtype), tree)
+
+
+def adamw_abstract(train) -> AdamWState:
+    """``adamw_init``'s stand-ins: a 0-d int32 step, fp32 moments."""
+    def f32(a):
+        return sds(a.shape)
+    return AdamWState(step=sds((), torch.int32), mu=_map_sds(f32, train),
+                      nu=_map_sds(f32, train))
+
+
+def build_gnn_train(arch: str, init_fn, forward_fn, shape: dict, *,
+                    molecular: bool, with_triplets: bool = False,
+                    d_hidden: int, n_layers: int):
+    """Builder closure for one GNN cell of the dry-run (``builder(mesh) ->
+    Built``): the reference's stand-ins and specs (module docstring), n and
+    m padded to ``PAD`` (a sampled shape's caps), DimeNet's triplets at
+    :func:`triplet_slots`, model FLOPs at the padded sizes."""
+
+    def builder(mesh):
+        from repro_torch.models.gnn.dimenet import Triplets
+        ax = all_axes(mesh)
+        sz = cell_sizes(shape)
+        n, m = sz["n"], sz["m"]
+        d = shape["d"]
+        n_graphs = shape.get("n_graphs")
+        classes = shape.get("classes")
+        params_a = abstract(init_fn(torch.Generator(), d_in=d,
+                                    d_out=classes if classes else 1,
+                                    device="meta"))
+        opt_a = adamw_abstract(split_params(params_a)[0])
+        batch_a = _graph_abstract(n, m, d, molecular=molecular,
+                                  n_graphs=n_graphs)
+        batch_s = _graph_specs(mesh, molecular=molecular, n_graphs=n_graphs)
+        if n_graphs:
+            labels_a, labels_s = sds((n_graphs,)), Spec()
+            loss_kind = "graph_mse"
+        else:
+            labels_a, labels_s = sds((n,), torch.int32), Spec(ax)
+            loss_kind = "node_ce"
+        extra_a, extra_s = (), ()
+        t = 0
+        if with_triplets:
+            t = sz["t"]
+            extra_a = (Triplets(e_in=sds((t,), torch.int32),
+                                e_out=sds((t,), torch.int32),
+                                mask=sds((t,))),)
+            extra_s = (Triplets(e_in=Spec(ax), e_out=Spec(ax),
+                                mask=Spec(ax)),)
+        fn = make_gnn_train_step(forward_fn, loss_kind, n_graphs=n_graphs)
+        in_sh = (_map_sds(lambda _: Spec(), params_a),
+                 _map_sds(lambda _: Spec(), opt_a), batch_s,
+                 labels_s, *extra_s)
+        flops = gnn_model_flops(arch, n, m, d, d_hidden, n_layers, "train",
+                                t)
+        return Built(fn=fn, args=(params_a, opt_a, batch_a, labels_a,
+                                  *extra_a),
+                     in_shardings=in_sh, model_flops=flops)
+
+    return builder
+
+
+def gnn_cells(arch: str, init_fn, forward_fn, *, molecular: bool,
+              with_triplets: bool = False, d_hidden: int,
+              n_layers: int) -> list[Cell]:
+    """The dry-run's four cells of ``arch``, one a shape."""
+    return [Cell(arch=arch, shape=name, kind="train",
+                 builder=build_gnn_train(arch, init_fn, forward_fn, shape,
+                                         molecular=molecular,
+                                         with_triplets=with_triplets,
+                                         d_hidden=d_hidden,
+                                         n_layers=n_layers))
+            for name, shape in SHAPES.items()]

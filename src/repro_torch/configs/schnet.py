@@ -2,13 +2,15 @@
 from functools import partial
 
 from repro_torch.models.gnn.schnet import init_schnet, schnet_forward
-from .common import cells_not_ported
-from .gnn_common import cell_builders
+from .gnn_common import cell_builders, gnn_cells
 
 HP = dict(d_hidden=64, n_interactions=3, n_rbf=300, cutoff=10.0)
 INIT = partial(init_schnet, **HP)
 FORWARD = partial(schnet_forward, n_rbf=HP["n_rbf"], cutoff=HP["cutoff"])
 MOLECULAR, WITH_TRIPLETS, N_LAYERS = True, False, HP["n_interactions"]
+
+CELLS = gnn_cells("schnet", INIT, FORWARD, molecular=MOLECULAR,
+                  d_hidden=HP["d_hidden"], n_layers=N_LAYERS)
 
 # reduced smoke config
 SMOKE_INIT = partial(init_schnet, d_hidden=16, n_interactions=2, n_rbf=20,
@@ -20,6 +22,3 @@ def cells() -> dict:
     """The four cells' materialising builders, by shape name."""
     return cell_builders("schnet", INIT, FORWARD, molecular=MOLECULAR,
                          d_hidden=HP["d_hidden"], n_layers=N_LAYERS)
-
-# the dry-run cells: ROADMAP.md Queue 1 item 5.4
-__getattr__ = cells_not_ported(__name__)

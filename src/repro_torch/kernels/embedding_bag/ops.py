@@ -20,13 +20,25 @@ call goes through :class:`EmbeddingBagFn`, whose forward is the same
 launch (the plain version on the CPU) and whose backward is the bag's
 transpose in plain PyTorch, a dense ``index_add_`` into the table's
 shape -- the gradient of the reference's ``take`` + sum.  No TPU kernel
-has a backward to port."""
+has a backward to port.
+
+The launch is the custom op ``torch.ops.repro_torch.embedding_bag``
+(table, idx, padding_idx): its implementation is :func:`_forward`, its
+fake implementation returns the output's shape and dtype and launches
+nothing, and its FLOP formula counts one add per lane and column (B hot
+d).  So the dry-run traces it on fake tensors, which a ctypes launch
+cannot see, and ``FlopCounterMode`` counts it on a card as a trace
+does.  On ``DTensor`` s the bag runs per shard of a row-sharded table
+(``sharding.py``)."""
 from __future__ import annotations
 
 import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.utils import is_dtensor
 
 from .. import _build, _resident
 from .._common import cuda_device, on_cpu
@@ -151,6 +163,27 @@ def launch(plan: dict, table, idx, out, padding_idx: int | None) -> None:
                            f"CUDA error {err}")
 
 
+@torch.library.custom_op("repro_torch::embedding_bag", mutates_args=())
+def _bag_op(table: torch.Tensor, idx: torch.Tensor,
+            padding_idx: int | None) -> torch.Tensor:
+    """The sum-mode bag: the kernel on a card, the plain version on the
+    CPU (:func:`_forward`)."""
+    return _forward(table, idx, padding_idx)
+
+
+@_bag_op.register_fake
+def _(table, idx, padding_idx):
+    return table.new_empty((idx.shape[0], table.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.embedding_bag)
+def _bag_flops(table_shape, idx_shape, padding_idx, *args, **kwargs) -> int:
+    """One add per lane and column, B hot d (the work PERF.md's bound
+    counts); lanes skipped as padding are counted too."""
+    (B, hot), d = idx_shape, table_shape[1]
+    return B * hot * d
+
+
 class EmbeddingBagFn(torch.autograd.Function):
     """The sum-mode bag whose forward is the kernel (the plain version on
     the CPU) and whose backward is the transpose of the bag:
@@ -165,7 +198,7 @@ class EmbeddingBagFn(torch.autograd.Function):
         ctx.save_for_backward(idx)
         ctx.table = (table.shape, table.dtype)
         ctx.padding_idx = padding_idx
-        return _forward(table, idx, padding_idx)
+        return torch.ops.repro_torch.embedding_bag(table, idx, padding_idx)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -189,18 +222,24 @@ def embedding_bag(table, idx, padding_idx: int | None = None):
     ``[0, V)`` is never clamped: on the CPU it raises, on a card the kernel
     traps, which surfaces at the next synchronisation.
     With grad mode on and a table that requires a gradient it goes through
-    :class:`EmbeddingBagFn`.
+    :class:`EmbeddingBagFn`.  A ``DTensor`` table runs per shard
+    (``sharding.bag``).
     ``embedding_bag.launches`` counts the kernel launches of this process,
     ``launches_by_route`` each route's.
     """
+    if is_dtensor(table):
+        from .sharding import bag
+        return bag(table, idx, padding_idx)
+    if not on_cpu(table, idx):
+        cuda_device(table)     # the op's fake would take any other device
     if torch.is_grad_enabled() and table.requires_grad:
         return EmbeddingBagFn.apply(table, idx, padding_idx)
-    return _forward(table, idx, padding_idx)
+    return torch.ops.repro_torch.embedding_bag(table, idx, padding_idx)
 
 
 def _forward(table, idx, padding_idx):
     """The launch of :func:`embedding_bag` (its plain version for CPU
-    tensors), outside autograd."""
+    tensors), outside autograd: the custom op's implementation."""
     if on_cpu(table, idx):
         return embedding_bag_ref(table, idx, padding_idx)
     dev = cuda_device(table)

@@ -69,7 +69,6 @@ from repro_torch.utils import human_bytes, human_count
 CARD = "NVIDIA H100 80GB HBM3, 700 W"
 MESHES = {"single": ("pod16x16", (16, 16), ("data", "model")),
           "multi": ("2pod 2x16x16", (2, 16, 16), ("pod", "data", "model"))}
-NOT_PORTED_CELLS = "ROADMAP.md Queue 1 item 5.4"
 
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
@@ -464,11 +463,12 @@ def run_cell(cell, mesh, mesh_label: str, chips: int,
 
 
 def main(argv=None) -> int:
-    from repro_torch.configs.registry import ARCHS, cells_of
+    from repro_torch.configs.registry import ARCHS, get_arch
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="all",
-                    help="arch id, 'all' (the assigned cells) or 'extra' "
-                         "(ripple-papers)")
+                    help="arch id, 'all' (every arch but ripple-papers: "
+                         "the assigned 40 cells and the optimised "
+                         "variants) or 'extra' (ripple-papers)")
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", choices=["single", "multi", "both"],
                     default="single")
@@ -490,13 +490,8 @@ def main(argv=None) -> int:
     meshes = [MESHES[m] for m in ("single", "multi")
               if args.mesh in (m, "both")]
 
-    cells = []
-    for name in names:
-        found = cells_of(name)
-        if found is None:
-            print(f"[NOT PORTED] {name}: {NOT_PORTED_CELLS}", flush=True)
-            continue
-        cells += [c for c in found if not args.shape or c.shape == args.shape]
+    cells = [c for name in names for c in get_arch(name).CELLS
+             if not args.shape or c.shape == args.shape]
     failures = 0
     for label, shape, axes in meshes:
         mesh = make_dryrun_mesh(shape, axes, args.device)

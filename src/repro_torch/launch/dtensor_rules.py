@@ -8,10 +8,15 @@ in PERF.md, and the collective each causes is counted.
   sharded, query and kv heads sharded when both head counts divide, or all
   replicated (a replicate strategy).
 
-The LM's own replicate rules (``models/lm/sharded.py``: ``gathered`` and
-its callers, ``project``'s whole layout) are layouts its per-shard paths
-choose, not strategies.  Nothing else replaces a sharded tensor by a
-replicated one silently: an op without a strategy stops the trace.
+``repro_torch::embedding_bag`` needs none: its wrapper runs a ``DTensor``
+table per shard (``kernels/embedding_bag/sharding.bag``), so the op only
+ever sees one rank's local tensors; so do the GNN cells' gathers and
+scatters (``models/gnn/sharded.py``, collectives written out) and DLRM's
+pair pick.  The LM's own replicate rules (``models/lm/sharded.py``:
+``gathered`` and its callers, ``project``'s whole layout) are layouts its
+per-shard paths choose, not strategies.  Nothing else replaces a sharded
+tensor by a replicated one silently: an op without a strategy or a
+per-shard path stops the trace.
 """
 from __future__ import annotations
 

@@ -2,7 +2,10 @@
 ``models/gnn/common.py``: the padded graph batch, segment message passing
 over an edge index, MLPs and the radial bases.  Message passing here is
 ``index_add_`` / ``scatter_reduce_`` over ``dst``; the ``segment_mm`` kernel
-takes the same contract on a card for the streaming engines.
+takes the same contract on a card for the streaming engines.  While a
+per-shard forward of the dry-run runs (``sharded.active()``), the sums,
+the maxima and :func:`whole` (which every gather by node or edge ids goes
+through) take ``sharded.py``'s paths; otherwise they are the plain ops.
 """
 from __future__ import annotations
 
@@ -11,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from . import sharded
 
 
 class GraphBatch(NamedTuple):
@@ -31,6 +36,8 @@ class GraphBatch(NamedTuple):
 def scatter_sum(values: torch.Tensor, dst: torch.Tensor,
                 n: int) -> torch.Tensor:
     """``out[v] = sum of values[e] over the e with dst[e] == v``; ``[n, ...]``."""
+    if sharded.active():
+        return sharded.scatter_sum(values, dst, n)
     out = values.new_zeros((n, *values.shape[1:]))
     return out.index_add_(0, dst.long(), values)
 
@@ -46,14 +53,23 @@ def scatter_max(values: torch.Tensor, dst: torch.Tensor, n: int,
                 mask: torch.Tensor, neutral: float = -1e30) -> torch.Tensor:
     """Masked segment max; a vertex with no real in-edge gets 0."""
     v = torch.where(mask[:, None] > 0, values, neutral)
-    out = values.new_full((n, *values.shape[1:]), neutral)
-    index = dst.long().view(-1, *(1,) * (v.dim() - 1)).expand_as(v)
-    out = out.scatter_reduce_(0, index, v, "amax")
+    if sharded.active():
+        out = sharded.scatter_max(v, dst, n, neutral)
+    else:
+        out = values.new_full((n, *values.shape[1:]), neutral)
+        index = dst.long().view(-1, *(1,) * (v.dim() - 1)).expand_as(v)
+        out = out.scatter_reduce_(0, index, v, "amax")
     return torch.where(out <= neutral / 2, 0.0, out)
 
 
 def scatter_min(values, dst, n, mask):
     return -scatter_max(-values, dst, n, mask)
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose rows a gather by node or edge ids reads: on a per-shard
+    forward every rank's rows (``sharded.whole``)."""
+    return sharded.whole(x) if sharded.active() else x
 
 
 def in_degree(dst: torch.Tensor, mask: torch.Tensor, n: int) -> torch.Tensor:
@@ -117,6 +133,7 @@ def polynomial_envelope(d: torch.Tensor, cutoff: float,
 def edge_vectors(positions: torch.Tensor, src: torch.Tensor,
                  dst: torch.Tensor):
     """Returns (unit vec [m,3], dist [m]) with safe normalization."""
+    positions = whole(positions)
     vec = positions[src.long()] - positions[dst.long()]
     d = torch.sqrt((vec * vec).sum(-1) + 1e-12)
     return vec / d[:, None], d

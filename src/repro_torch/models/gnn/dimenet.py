@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import (GraphBatch, bessel_rbf, edge_vectors, init_mlp, mlp,
-                     polynomial_envelope, scatter_sum)
+                     polynomial_envelope, scatter_sum, sharded, whole)
 
 
 # ---------------------------------------------------------------------------
@@ -173,11 +173,18 @@ def bilinear(sbf_p: torch.Tensor, x: torch.Tensor, e_in: torch.Tensor,
     """``einsum("tb,ti,bij->tj", sbf_p, x[e_in], w)`` without a ``[t, b,
     i, j]`` or ``[t, b, i]`` intermediate: ``x @ w_b`` for every b on the
     edges, gathered by ``e_in`` (``[t, b * d]``, the largest tensor),
-    weighted by ``sbf_p`` in one batched product."""
+    weighted by ``sbf_p`` in one batched product.  On a per-shard forward
+    (``sharded.active()``) the edges' ``x`` is gathered, as the reference
+    gathers ``x[e_in]``, and multiplied on the triplets: the ``[m, b * d]``
+    product would be eight times the rows to gather."""
     t, b = sbf_p.shape
     d_in, d_out = w.shape[1], w.shape[2]
-    xw = x @ w.permute(1, 0, 2).reshape(d_in, b * d_out)     # [m, b * d]
-    g = xw.index_select(0, e_in.long()).view(t, b, d_out)
+    w = w.permute(1, 0, 2).reshape(d_in, b * d_out)
+    if sharded.active():
+        g = (whole(x).index_select(0, e_in.long()) @ w).view(t, b, d_out)
+    else:
+        xw = x @ w                                           # [m, b * d]
+        g = xw.index_select(0, e_in.long()).view(t, b, d_out)
     return torch.bmm(sbf_p[:, None, :], g)[:, 0]
 
 
@@ -192,13 +199,14 @@ def dimenet_forward(params, g: GraphBatch, trip: Triplets, *,
     e_in, e_out = trip.e_in.long(), trip.e_out.long()
 
     # angle(k->j->i) between (x_k - x_j) and (x_i - x_j)
-    v_out = unit.index_select(0, e_out)    # x_j - x_i direction
-    v_in = unit.index_select(0, e_in)      # x_k - x_j direction
+    unit_w, dist_w = whole(unit), whole(dist)
+    v_out = unit_w.index_select(0, e_out)    # x_j - x_i direction
+    v_in = unit_w.index_select(0, e_in)      # x_k - x_j direction
     c = -(v_in * v_out).sum(-1)
     one = torch.ones_like(c)
     cos_a = torch.minimum(torch.maximum(c, -one), one)   # jnp.clip's ties
     # 2D spherical basis: j_l(z_ln * d_kj / c) * P_l(cos angle)
-    x_scaled = dist.index_select(0, e_in)[:, None, None] / cutoff \
+    x_scaled = dist_w.index_select(0, e_in)[:, None, None] / cutoff \
         * params["_zeros"]
     jl = torch.stack([_jl_torch(l, x_scaled[:, l, :])
                       for l in range(n_spherical)], dim=1)
@@ -208,8 +216,9 @@ def dimenet_forward(params, g: GraphBatch, trip: Triplets, *,
 
     h = mlp(params["embed_node"], g.node_feat)
     src, dst = g.src.long(), g.dst.long()
+    h_w = whole(h)
     msg = mlp(params["embed_edge"],
-              torch.cat([h.index_select(0, src), h.index_select(0, dst),
+              torch.cat([h_w.index_select(0, src), h_w.index_select(0, dst),
                          rbf], -1))                  # [m, d]
 
     node_out = h.new_zeros((n, d_hid))

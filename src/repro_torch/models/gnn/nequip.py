@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import (GraphBatch, bessel_rbf, edge_vectors, init_mlp, mlp,
-                     polynomial_envelope, scatter_sum)
+                     polynomial_envelope, scatter_sum, whole)
 
 # EPS3[i, k, l] = epsilon_{ikl}
 EPS3 = np.stack([np.cross(np.eye(3)[i], np.eye(3)) for i in range(3)])
@@ -124,7 +124,7 @@ def nequip_forward(params, g: GraphBatch, *, n_rbf: int = 8,
         w = (mlp(lay["radial"], rbf) * env).reshape(m, len(PATHS), C)
         agg = {0: h0.new_zeros((n, C)), 1: h0.new_zeros((n, C, 3)),
                2: h0.new_zeros((n, C, 3, 3))}
-        gathered = {l: h[l].index_select(0, src) for l in range(3)}
+        gathered = {l: whole(h[l]).index_select(0, src) for l in range(3)}
         for p, (l1, l2, l3) in enumerate(PATHS):
             msg = tp_contract(l1, l2, l3, gathered[l1], Y[l2])
             wp = w[:, p].reshape((m, C) + (1,) * l3)

@@ -161,7 +161,11 @@ def _pack_route(n_parts, n_local, cap, dst_global, vals):
     ids.index_copy_(0, slot, (dg % n_local)[order].to(torch.int32))
     buf = vals.new_zeros((trash + 1,) + tuple(vals.shape[1:]))
     buf = buf.index_copy(0, slot, vals.index_select(0, order))
-    counts = torch.bincount(sp, minlength=n_parts + 1)[:n_parts]
+    # each partition's count from the sorted ids (``bincount``'s output
+    # size would depend on the data, which a fake tensor cannot trace)
+    bounds = torch.searchsorted(sp, torch.arange(n_parts + 1,
+                                                 device=sp.device))
+    counts = bounds[1:] - bounds[:-1]
     return (ids[:trash].view(n_parts, cap),
             buf[:trash].view((n_parts, cap) + tuple(vals.shape[1:])),
             (counts > cap).any())

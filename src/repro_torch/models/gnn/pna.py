@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from .common import (GraphBatch, in_degree, init_mlp, mlp, scatter_max,
-                     scatter_mean, scatter_min)
+                     scatter_mean, scatter_min, whole)
 
 N_AGG, N_SCALER = 4, 3
 
@@ -44,8 +44,9 @@ def pna_forward(params, g: GraphBatch, *, delta: float = 2.0) -> torch.Tensor:
                delta / logd.clamp(min=1e-6))
     src, dst = g.src.long(), g.dst.long()
     for lay in params["layers"]:
-        msgs = mlp(lay["pre"], torch.cat([h.index_select(0, dst),
-                                         h.index_select(0, src)], -1))
+        hw = whole(h)
+        msgs = mlp(lay["pre"], torch.cat([hw.index_select(0, dst),
+                                         hw.index_select(0, src)], -1))
         mean = scatter_mean(msgs, dst, n, g.edge_mask)
         mx = scatter_max(msgs, dst, n, g.edge_mask)
         mn = scatter_min(msgs, dst, n, g.edge_mask)

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import (GraphBatch, cosine_cutoff, edge_vectors, gaussian_rbf,
-                     init_mlp, mlp, scatter_sum)
+                     init_mlp, mlp, scatter_sum, whole)
 
 
 def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
@@ -54,6 +54,6 @@ def schnet_forward(params, g: GraphBatch, *, n_rbf: int = 300,
     for blk in params["blocks"]:
         W = mlp(blk["filter"], rbf, act=shifted_softplus) * fcut  # [m, dh]
         x = mlp(blk["in_proj"], h)
-        agg = scatter_sum(x.index_select(0, src) * W, g.dst, n)
+        agg = scatter_sum(whole(x).index_select(0, src) * W, g.dst, n)
         h = h + mlp(blk["out_proj"], agg, act=shifted_softplus)
     return mlp(params["out"], h, act=shifted_softplus)

@@ -37,6 +37,7 @@ from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.common import Spec, dp_size_of, placements
+from repro_torch.utils import mesh_block
 
 from . import model as _m
 
@@ -98,17 +99,6 @@ def _dp_lay(mesh, dp, d: int, split: bool = True) -> list:
     replicated."""
     return [Shard(d) if split and a in dp and mesh.size(i) > 1
             else Replicate() for i, a in enumerate(_names(mesh))]
-
-
-def _block(mesh, dims: list) -> tuple[int, int]:
-    """(this rank's block index, the number of blocks) of a dim sharded
-    over the mesh dims ``dims``, outermost first."""
-    coord = mesh.get_coordinate()
-    block, n = 0, 1
-    for i in dims:
-        block = block * mesh.size(i) + coord[i]
-        n *= mesh.size(i)
-    return block, n
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +220,7 @@ def embed(table, tokens):
     table = gathered(table, t_lay)
     if not vocab:
         return table[tokens]
-    block, n = _block(mesh, vocab)
+    block, n = mesh_block(mesh, vocab)
     rows = table.shape[0] // n
     lo = block * rows
 
@@ -304,7 +294,7 @@ def cross_entropy(logits, targets):
     split = logits.shape[0] % dp_size_of(mesh) == 0
     lay = _dp_lay(mesh, dp, 0, split)
     v_lay = [Shard(2) if i in vocab else p for i, p in enumerate(lay)]
-    block, n = _block(mesh, vocab)
+    block, n = mesh_block(mesh, vocab)
     v_lo = block * (logits.shape[-1] // n)
     groups = [mesh.get_group(i) for i in vocab]
     per_token = local_map(
@@ -401,7 +391,7 @@ def cache_write(cache, pos: int, new) -> None:
     mesh = cache.device_mesh
     lay = cache.placements
     seq = _seq_dims(cache)
-    block, n = _block(mesh, seq)
+    block, n = mesh_block(mesh, seq)
     rows = cache.shape[1] // n
     lo = block * rows
 
@@ -431,7 +421,7 @@ def decode_attention(scores_of, context_of, queries: tuple, keys: tuple,
     mesh = keys[0].device_mesh
     lay = list(keys[0].placements)
     seq = _seq_dims(keys[0])
-    block, n = _block(mesh, seq)
+    block, n = mesh_block(mesh, seq)
     rows = keys[0].shape[1] // n
     lo = block * rows
     groups = [mesh.get_group(i) for i in seq]

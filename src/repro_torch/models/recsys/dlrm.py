@@ -10,6 +10,12 @@ tables require a gradient the wrapper goes through ``EmbeddingBagFn``,
 whose backward is the bag's transpose (a dense table gradient).  The
 retrieval shape scores one query against N candidates with one
 matrix-vector product.
+
+On ``DTensor`` s (the dry-run's cells: tables row-sharded over ``model``,
+the batch over the data axes) each bag runs per shard of its table
+(``kernels/embedding_bag/sharding.py``) and its partial sum over
+``model`` is all-reduced; the interaction's pair pick runs per batch
+shard.  Every other op is DTensor's own.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.models.gnn.common import init_mlp, mlp
+from repro_torch.utils import is_dtensor
 
 
 class DLRMConfig(NamedTuple):
@@ -98,7 +105,31 @@ def _bags(params, sparse_idx: torch.Tensor, bag) -> list[torch.Tensor]:
     laid out field-major once, so that every field's ids are the
     contiguous int32 ``[B, hot]`` the kernel takes."""
     idx = sparse_idx.to(torch.int32).permute(1, 0, 2).contiguous()
-    return [bag(t, idx[f]) for f, t in enumerate(params["tables"])]
+    out = [bag(t, idx[f]) for f, t in enumerate(params["tables"])]
+    if is_dtensor(sparse_idx):
+        out = [_replicated(o) for o in out]
+    return out
+
+
+def _replicated(x):
+    """A ``DTensor`` with its partial sums reduced (an all-reduce)."""
+    from torch.distributed.tensor import Partial, Replicate
+    lay = [Replicate() if isinstance(p, Partial) else p for p in x.placements]
+    return x if lay == list(x.placements) else x.redistribute(
+        x.device_mesh, lay)
+
+
+def _pairs(inter: torch.Tensor, iu, ju) -> torch.Tensor:
+    """``inter[:, iu, ju]``; on a ``DTensor`` per shard of its batch."""
+    if not is_dtensor(inter):
+        return inter[:, iu, ju]
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    lay = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+           for p in inter.placements]
+    return local_map(lambda t: t[:, iu, ju], out_placements=lay,
+                     in_placements=(lay,), device_mesh=inter.device_mesh,
+                     redistribute_inputs=True)(inter)
 
 
 def dlrm_forward(params, cfg: DLRMConfig, dense: torch.Tensor,
@@ -112,7 +143,7 @@ def dlrm_forward(params, cfg: DLRMConfig, dense: torch.Tensor,
     inter = torch.bmm(feats, feats.transpose(1, 2))            # dot interaction
     iu, ju = torch.triu_indices(feats.shape[1], feats.shape[1], 1,
                                 device=feats.device)
-    z = torch.cat([x_dense, inter[:, iu, ju]], dim=-1)
+    z = torch.cat([x_dense, _pairs(inter, iu, ju)], dim=-1)
     return mlp(params["top"], z, act=F.relu)[:, 0]
 
 

@@ -53,3 +53,20 @@ def human_count(n: float) -> str:
             return f"{n:.3g}{unit}"
         n /= 1000.0
     return f"{n:.3g}E"
+
+
+def is_dtensor(x) -> bool:
+    """``x`` is a ``DTensor`` (a dry-run cell's argument, or made from one)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def mesh_block(mesh, dims: list) -> tuple[int, int]:
+    """(this rank's block index, the number of blocks) of a tensor dim
+    sharded over the mesh dims ``dims`` of ``mesh``, outermost first."""
+    coord = mesh.get_coordinate()
+    block, n = 0, 1
+    for i in dims:
+        block = block * mesh.size(i) + coord[i]
+        n *= mesh.size(i)
+    return block, n

@@ -230,3 +230,45 @@ def test_params_from_numpy_checks_the_tree():
                           tree["top"][1]])
     with pytest.raises(ValueError, match="top/0/w"):
         td.params_from_numpy(bad, cfg, "cpu")
+
+
+@pytest.mark.parametrize("padding_idx", [None, 3])
+def test_bag_custom_op_is_the_plain_bag_with_a_fake(padding_idx):
+    """``torch.ops.repro_torch.embedding_bag`` on CPU tensors equals
+    ``embedding_bag_ref`` (the kernel's plain version), bit for bit; its
+    fake gives ``[B, d]`` in the table's dtype without running it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    gen = torch.Generator().manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        table = torch.randn((40, 8), generator=gen).to(dtype)
+        idx = torch.randint(0, 40, (7, 3), generator=gen, dtype=torch.int32)
+        idx[0, :] = 3
+        got = torch.ops.repro_torch.embedding_bag(table, idx, padding_idx)
+        assert torch.equal(got, embedding_bag_ref(table, idx, padding_idx))
+        with FakeTensorMode():
+            fake = torch.ops.repro_torch.embedding_bag(
+                torch.empty((40, 8), dtype=dtype),
+                torch.empty((7, 3), dtype=torch.int32), padding_idx)
+        assert fake.shape == (7, 8) and fake.dtype == dtype
+
+
+@pytest.mark.parametrize("multi_hot", [1, 3])
+def test_flop_counter_counts_each_bag_of_the_forward(multi_hot):
+    """``FlopCounterMode`` around DLRM's SMOKE forward (and its gradient,
+    where the bags go through ``EmbeddingBagFn``) counts B hot d for each
+    field's bag through the custom op's formula."""
+    from torch.utils.flop_counter import FlopCounterMode
+    cfg = cfgs.SMOKE_CONFIG._replace(multi_hot=multi_hot)
+    params = td.init_dlrm(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    dense, sparse, labels = _t(*_inputs(cfg, 5))
+    want = cfg.n_sparse * 5 * multi_hot * cfg.embed_dim
+    with FlopCounterMode(display=False) as counter:
+        td.dlrm_forward(params, cfg, dense, sparse)
+    counts = counter.get_flop_counts()["Global"]
+    assert counts[torch.ops.repro_torch.embedding_bag] == want
+    from repro_torch.train import value_and_grad
+    with FlopCounterMode(display=False) as counter:
+        value_and_grad(td.dlrm_loss)(params, cfg, dense, sparse, labels)
+    counts = counter.get_flop_counts()["Global"]
+    assert counts[torch.ops.repro_torch.embedding_bag] == want

@@ -5,9 +5,11 @@ fake process group they need cannot share a process with the real one
 other tests make.  It traces the REDUCED LM cells on a fake 2 x 2 "cpu"
 mesh (where DTensor's all-to-alls appear as all-gathers: "CPU process
 group does not support alltoall"), qwen2's train step at 1, 2 and 3
-layers, the counters' pins on the fake 16 x 16 mesh, the ripple cell at
-the geometry of a small CPU ``DistEngine`` built here, and the CLI's
-``--arch extra --mesh both``.
+layers, each GNN's SMOKE widths at two shapes, DLRM-RM2's SMOKE cells and
+``schnet-part`` at a small geometry there too, the counters' pins and
+``schnet/ogb_products`` at full size on the fake 16 x 16 mesh, the ripple
+cell at the geometry of a small CPU ``DistEngine`` built here, and the
+CLI's ``--arch extra --mesh both``.
 """
 import json
 import os
@@ -18,12 +20,11 @@ import pytest
 import torch
 
 from repro_torch.api import InferenceSession, SessionConfig
-from repro_torch.configs.registry import ARCHS, all_cells, get_arch
+from repro_torch.configs.registry import all_cells, get_arch
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import default_mesh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_YET = ("schnet", "pna", "nequip", "dimenet", "dlrm-rm2", "schnet-part")
 
 
 def _engine_call():
@@ -92,6 +93,58 @@ def test_reduced_cells_trace_to_finite_records(probe, cell):
                                  - mem["output_bytes"])
     # a "cpu" mesh: DTensor's all-to-alls come out as all-gathers
     assert rec["collectives"]["all-to-all"] == 0
+
+
+SMALL = [f"{a}/{s}" for a in ("schnet", "pna", "nequip", "dimenet")
+         for s in ("full_graph_sm", "molecule")] + [
+    "dlrm-rm2/train", "dlrm-rm2/serve", "dlrm-rm2/retrieval",
+    "schnet-part/v1", "schnet-part/v2"]
+
+
+@pytest.mark.parametrize("cell", SMALL)
+def test_gnn_dlrm_and_partitioned_cells_trace(probe, cell):
+    """Finite records whose argument bytes are the specs' shards; the GNN
+    cells' gathers and scatters appear as all-gathers and
+    reduce-scatters, the parameters' gradients as all-reduces; DLRM's
+    bags' partial sums over ``model`` as all-reduces; schnet-part's
+    exchanges as all-to-alls (all-gathers on a "cpu" mesh)."""
+    rec = probe["small"][cell]
+    mem = rec["mem_per_device"]
+    for key in ("flops_per_chip", "bytes_per_chip",
+                "collective_bytes_per_chip", "t_compute_s", "t_memory_s",
+                "t_collective_s"):
+        assert 0 < rec[key] < float("inf"), key
+    assert mem["argument_bytes"] == rec["expected_argument_bytes"]
+    assert mem["peak_bytes"] >= mem["argument_bytes"] + mem["output_bytes"]
+    coll = rec["collectives"]
+    assert coll["all-reduce"] > 0
+    if cell.startswith(("schnet/", "pna/", "nequip/", "dimenet/")):
+        assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
+    elif cell.startswith("schnet-part/"):
+        assert coll["all-to-all"] > 0 and coll["all-gather"] == 0
+    else:
+        assert coll["all-gather"] == coll["reduce-scatter"] == 0
+
+
+def test_dlrm_flops_count_the_bags(probe):
+    """The serve cell (SMOKE: 6 fields, batch 8 over ``data`` = 2, one
+    lane, d 16) counts B hot d for each of rank 0's bags, 6 x 4 x 1 x 16,
+    on top of the products: without the custom op's formula the trace
+    counts that much less."""
+    with_bags = probe["small"]["dlrm-rm2/serve"]["flops_per_chip"]
+    assert with_bags - probe["dlrm_serve_flops_without_bags"] == \
+        6 * 4 * 1 * 16
+
+
+def test_schnet_products_traces_at_full_size(probe):
+    """``schnet/ogb_products`` on the fake 16 x 16 mesh: the reference's
+    8,293,632 argument bytes a chip, and the all-gathers of the node rows
+    that the edges read."""
+    rec = probe["schnet_full"]
+    assert rec["mem_per_device"]["argument_bytes"] == 8_293_632
+    assert rec["collectives"]["all-gather"] > 0
+    assert rec["collectives"]["reduce-scatter"] > 0
+    assert 0 < rec["flops_per_chip"] < float("inf")
 
 
 def test_costs_are_affine_in_depth(probe):
@@ -186,19 +239,13 @@ def test_registry_holds_the_dryrun_archs():
                       "olmoe-1b-7b", "deepseek-v3-671b")
           for c in get_arch(a).CELLS]
     assert len(lm) == 20 and len({c.name for c in lm}) == 20
-    # the GNN, DLRM and schnet-part cells are not there yet: all_cells
-    # holds the ported ones
-    assert [c.name for c in all_cells(include_extra=False)] == \
-        [c.name for c in lm]
+    # the reference's assigned 40: the LM cells, then the four GNNs' and
+    # DLRM-RM2's (tests/test_torch_dryrun_cells.py holds the names to the
+    # reference's)
+    assigned = [c.name for c in all_cells(include_extra=False)]
+    assert len(assigned) == 40 and assigned[:20] == [c.name for c in lm]
+    assert sum(n.startswith("dlrm-rm2/") for n in assigned) == 4
     extra = [c.name for c in all_cells(include_extra=True)]
-    assert len(extra) == 23 and "ripple-papers/stream_1k" in extra
+    assert len(extra) == 45 and "ripple-papers/stream_1k" in extra
     assert sum(n.startswith("deepseek-v3-opt/") for n in extra) == 2
-
-
-@pytest.mark.parametrize("name", NOT_YET)
-def test_unported_cells_name_their_roadmap_item(name):
-    assert name in ARCHS
-    with pytest.raises(NotImplementedError, match="item 5.4"):
-        get_arch(name).CELLS
-    with pytest.raises(AttributeError):
-        get_arch(name).NO_SUCH_NAME
+    assert sum(n.startswith("schnet-part/") for n in extra) == 2

@@ -202,15 +202,15 @@ BUILD_CUTS = {"full_graph_sm": 16, "minibatch_lg": 256, "molecule": 1,
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("shape", list(BUILD_CUTS))
 def test_materialised_cell_takes_a_step(arch, shape):
-    """``build_gnn_train`` with the arch's SMOKE widths at each shape: the
-    synthetic batch (padded edges in range with mask 0, padded nodes
-    zero, molecule's padded nodes in graph n_graphs; DimeNet's real
+    """``materialize_gnn_train`` with the arch's SMOKE widths at each
+    shape: the synthetic batch (padded edges in range with mask 0, padded
+    nodes zero, molecule's padded nodes in graph n_graphs; DimeNet's real
     triplets within the slots), one step that moves every trainable leaf
     with a finite loss."""
     mod = get_arch(arch)
     cut = BUILD_CUTS[shape]
     spec = tgc.SHAPES[shape]
-    built = tgc.build_gnn_train(
+    built = tgc.materialize_gnn_train(
         arch, mod.SMOKE_INIT, mod.SMOKE_FORWARD, spec,
         molecular=mod.MOLECULAR, with_triplets=mod.WITH_TRIPLETS,
         d_hidden=mod.HP["d_hidden"], n_layers=mod.N_LAYERS)(

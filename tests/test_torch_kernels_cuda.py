@@ -14,8 +14,9 @@ partition; embedding_bag's one-lane bags over DLRM-sized tables (past
 olmoe's MHA grouping and at ragged sequence lengths, on both of its
 routes (the wgmma kernel bit-equal across launches); the gradients of
 ``FlashAttentionFn`` (6 query heads a kv head among the shapes) and
-``EmbeddingBagFn`` against autograd of the plain versions; and a small ``dist`` session at world size 1 over NCCL
-against the full pass.  Imports no JAX, so it runs where only PyTorch is
+``EmbeddingBagFn`` against autograd of the plain versions; the
+``embedding_bag`` custom op launching the kernel, its FLOPs counted; and a
+small ``dist`` session at world size 1 over NCCL against the full pass.  Imports no JAX, so it runs where only PyTorch is
 installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -379,6 +380,32 @@ def test_embedding_bag_kernel_on_card(cuda, V, B, hot, d, dtype):
     assert out.dtype == dtype
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding_idx", [None, 7])
+def test_embedding_bag_custom_op_launches_the_kernel_on_card(cuda,
+                                                             padding_idx):
+    """``torch.ops.repro_torch.embedding_bag`` on CUDA tensors launches the
+    kernel once (its narrow route at one lane a bag, DLRM's) and equals
+    the plain version; ``FlopCounterMode`` counts its formula, B hot d."""
+    from torch.utils.flop_counter import FlopCounterMode
+    rng = np.random.default_rng(2)
+    table = torch.as_tensor(_rand(rng, 1000, 64), device=cuda)
+    idx = torch.as_tensor(rng.integers(0, 1000, size=(512, 1))
+                          .astype(np.int32), device=cuda)
+    idx[:3] = 7
+    before = embedding_bag.launches
+    narrow = embedding_bag.launches_by_route["narrow"]
+    with FlopCounterMode(display=False) as counter:
+        out = torch.ops.repro_torch.embedding_bag(table, idx, padding_idx)
+    torch.cuda.synchronize()
+    assert embedding_bag.launches == before + 1
+    assert embedding_bag.launches_by_route["narrow"] == narrow + 1
+    assert counter.get_total_flops() == 512 * 1 * 64
+    torch.testing.assert_close(out, embedding_bag_ref(table, idx,
+                                                      padding_idx),
+                               atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda

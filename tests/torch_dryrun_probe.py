@@ -1,9 +1,12 @@
 """The port's dry-run on the CPU, in a process of its own (the fake process
 group it runs on cannot share a process with a real one): the REDUCED LM
 cells on a fake 2 x 2 "cpu" mesh, the 1/2/3-layer variants of qwen2's
-train step, the counters' pins on the fake 16 x 16 mesh, ``build_ripple``
-at a small geometry, and the CLI with ``--arch extra``.  Writes one JSON
-object to the path given.
+train step, each GNN's SMOKE widths at two shapes, DLRM-RM2's SMOKE cells
+(and its serve cell's FLOPs without the bag's formula), ``schnet-part`` at
+a small geometry, the counters' pins and ``schnet/ogb_products`` at full
+size on the fake 16 x 16 mesh, ``build_ripple`` at a small geometry, and
+the CLI with ``--arch extra``.  Writes one JSON object to the path
+given.
 
     PYTHONPATH=src python tests/torch_dryrun_probe.py OUT.json
 """
@@ -51,6 +54,64 @@ def lm_cells(out: dict) -> None:
         rec["expected_argument_bytes"] = dryrun.argument_bytes(
             cell.build(mesh), mesh)
         out["cells"][f"{arch}/{kind}"] = rec
+
+
+def gnn_dlrm_part(out: dict) -> None:
+    """The GNN, DLRM-RM2 and schnet-part cells at small sizes on the fake
+    2 x 2 mesh: ``out["small"][name]`` a record each."""
+    import torch
+    from torch.utils.flop_counter import flop_registry
+    from repro_torch.configs import dlrm_rm2, gnn_common, schnet_part
+    from repro_torch.configs.common import Cell
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dryrun_mesh
+    mesh = make_dryrun_mesh((2, 2), ("data", "model"), "cpu")
+    cells = []
+    for arch in ("schnet", "pna", "nequip", "dimenet"):
+        mod = get_arch(arch)
+        for shape in ("full_graph_sm", "molecule"):
+            cells.append(Cell(arch, shape, "train", gnn_common.build_gnn_train(
+                arch, mod.SMOKE_INIT, mod.SMOKE_FORWARD,
+                gnn_common.SHAPES[shape], molecular=mod.MOLECULAR,
+                with_triplets=mod.WITH_TRIPLETS, d_hidden=mod.HP["d_hidden"],
+                n_layers=mod.N_LAYERS)))
+    cfg = dlrm_rm2.SMOKE_CONFIG
+    cells += [Cell("dlrm-rm2", "train", "train",
+                   dlrm_rm2.build_train(cfg, 8)),
+              Cell("dlrm-rm2", "serve", "serve", dlrm_rm2.build_serve(cfg, 8)),
+              Cell("dlrm-rm2", "retrieval", "retrieval",
+                   dlrm_rm2.build_retrieval(cfg, 16))]
+    for name, fn in (("v1", schnet_part.build), ("v2", schnet_part.build_v2)):
+        cells.append(Cell("schnet-part", name, "train",
+                          lambda m, fn=fn: fn(m, n=256, m=2048)))
+    small = {}
+    for cell in cells:
+        rec = record(dryrun.run_cell(cell, mesh, "2x2", 4, "cpu"))
+        rec["expected_argument_bytes"] = dryrun.argument_bytes(
+            cell.build(mesh), mesh)
+        small[cell.name] = rec
+    out["small"] = small
+    # the serve cell again without the bag's FLOP formula
+    op = torch.ops.repro_torch.embedding_bag
+    formula = flop_registry.pop(op)
+    try:
+        rec = dryrun.run_cell(cells[-4], mesh, "2x2", 4, "cpu")
+    finally:
+        flop_registry[op] = formula
+    out["dlrm_serve_flops_without_bags"] = rec["flops_per_chip"]
+
+
+def schnet_full(out: dict) -> None:
+    """``schnet/ogb_products`` at full size on the fake 16 x 16 mesh."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dryrun_mesh
+    mesh = make_dryrun_mesh((16, 16), ("data", "model"), "cpu")
+    cell = next(c for c in get_arch("schnet").CELLS
+                if c.shape == "ogb_products")
+    out["schnet_full"] = record(dryrun.run_cell(cell, mesh, "pod16x16", 256,
+                                                "cpu"))
 
 
 def pins(out: dict) -> None:
@@ -123,7 +184,9 @@ def cli(out: dict, path: str) -> None:
 def main() -> None:
     out = {}
     lm_cells(out)
+    gnn_dlrm_part(out)
     pins(out)
+    schnet_full(out)
     ripple(out)
     cli(out, sys.argv[1] + ".jsonl")
     with open(sys.argv[1], "w") as f:

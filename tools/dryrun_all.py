@@ -1,5 +1,5 @@
-"""Runs the port's dry-run over every ported cell on both production meshes
-(``--arch all`` and ``--arch extra`` with ``--mesh both``), one
+"""Runs the port's dry-run over every cell on both production meshes (the
+45 cells of ``--arch all`` and ``--arch extra`` with ``--mesh both``), one
 ``python -m repro_torch.launch.dryrun`` process per (arch, mesh), several
 at a time, and writes their records to one JSONL.
 
@@ -11,9 +11,8 @@ Each process's records go to ``DIR/<arch>_<mesh>.jsonl`` and its output to
 registry order, single mesh first).  Then it prints
 ``benchmarks/roofline_report.py``'s tables of that file, a Markdown table
 of every record (FLOPs, bytes, collective bytes and peak per chip, the
-dominant term and the trace's seconds), the card's name and power limit
-as ``nvidia-smi`` gives them, and the archs whose cells are not ported.
-Exits 1 if any ported cell failed.
+dominant term and the trace's seconds), and the card's name and power
+limit as ``nvidia-smi`` gives them.  Exits 1 if any cell failed.
 """
 from __future__ import annotations
 
@@ -65,12 +64,10 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(args.jobs) as pool:
         done = list(pool.map(lambda j: run_one(*j, args.device, out), jobs))
-    failed, not_ported = [], []
+    failed = []
     for arch, mesh, rc, secs, stdout in done:
         print(f"{arch} {mesh}: exit {rc}, {secs:.1f} s", flush=True)
         for line in stdout.splitlines():
-            if line.startswith("[NOT PORTED]"):
-                not_ported.append(arch)
             if line.startswith(("[OK]", "[FAIL]")):
                 print("  " + line)
         if rc != 0:
@@ -101,8 +98,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True) if args.device == "cuda" else None
     print(f"card: {card.stdout.strip() if card else 'none (cpu)'}")
-    print(f"records: {len(records)}; not ported: {sorted(set(not_ported))};"
-          f" failed: {failed}; wall {time.perf_counter() - t0:.1f} s")
+    print(f"records: {len(records)}; failed: {failed}; wall "
+          f"{time.perf_counter() - t0:.1f} s")
     return 1 if failed else 0
 
 
