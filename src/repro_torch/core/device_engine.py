@@ -67,6 +67,7 @@ from repro_torch.kernels.delta_apply import delta_apply
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.extremum_apply import extremum_apply
 from repro_torch.kernels.mlp_apply import mlp_apply
+from repro_torch.tracing import span, spanned
 from repro_torch.utils import next_bucket, pad_to, resolve_device
 
 from .aggregators import (certified_error_bound, deferral_budgets,
@@ -155,24 +156,26 @@ class DeviceCSRMirror:
         rows = np.asarray(rows, dtype=np.int64)
         if rows.size == 0:
             return
-        deg = self.half.length[rows]
-        if np.any(deg > self._cap_h[rows]):
-            self._rebuild()         # some row outgrew its slack
-            return
-        src_idx = flat_row_indices(self.half.start[rows], deg)
-        dst_idx = flat_row_indices(self._start_h[rows], deg)
-        kb = int(dst_idx.size)
-        # one packed upload: [slot_idx | slot_col | row_idx | row_len]
-        ints = _upload(np.concatenate([dst_idx, self.half.col[src_idx],
-                                       rows, deg]).astype(np.int64),
-                       self.device)
-        slot_w = _upload(self.half.w[src_idx].astype(np.float32), self.device)
-        slot_idx, slot_col = ints[:kb], ints[kb:2 * kb]
-        row_idx, row_len = ints[2 * kb:].split(rows.size)
-        self.col.index_copy_(0, slot_idx, slot_col)
-        self.w.index_copy_(0, slot_idx, slot_w)
-        self.length.index_copy_(0, row_idx, row_len)
-        self.row_refreshes += int(rows.size)
+        with span("DeviceCSRMirror.refresh"):
+            deg = self.half.length[rows]
+            if np.any(deg > self._cap_h[rows]):
+                self._rebuild()         # some row outgrew its slack
+                return
+            src_idx = flat_row_indices(self.half.start[rows], deg)
+            dst_idx = flat_row_indices(self._start_h[rows], deg)
+            kb = int(dst_idx.size)
+            # one packed upload: [slot_idx | slot_col | row_idx | row_len]
+            ints = _upload(np.concatenate([dst_idx, self.half.col[src_idx],
+                                           rows, deg]).astype(np.int64),
+                           self.device)
+            slot_w = _upload(self.half.w[src_idx].astype(np.float32),
+                             self.device)
+            slot_idx, slot_col = ints[:kb], ints[kb:2 * kb]
+            row_idx, row_len = ints[2 * kb:].split(rows.size)
+            self.col.index_copy_(0, slot_idx, slot_col)
+            self.w.index_copy_(0, slot_idx, slot_w)
+            self.length.index_copy_(0, row_idx, row_len)
+            self.row_refreshes += int(rows.size)
 
     def csr(self) -> DeviceCSR:
         return DeviceCSR(col=self.col, w=self.w, start=self.start,
@@ -436,41 +439,47 @@ def propagate(workload: Workload, n: int,
     hops = []
     sizes = []
     for l in range(L):
-        r_cap, e_cap = caps[l]
-        all_dst, all_val, needed = _hop_messages(
-            n, state.H[l], csr, frontier, delta, batch,
-            weighted=spec.weighted, self_dep=spec.self_dependent,
-            e_cap=e_cap)
-        rec_idx, pos_r, n_rec = _unique_recipients(n, all_dst, r_cap)
-        overflow = overflow | (needed > e_cap) | (n_rec > r_cap)
-        sizes.append(torch.stack([n_rec, needed, torch.zeros_like(needed)]))
-        mailbox = segment_sum(all_val, pos_r[all_dst.clamp(max=n)], r_cap)
-        k_rows = _k_rows(n, state, batch, rec_idx, pos_r, r_cap)
-        S_rows, h_new, delta = _apply_hop(
-            workload, params[l], eps[l], l, n, state, k_rows, patch,
-            rec_idx, mailbox)
-        hops.append((rec_idx, S_rows, h_new))
-        patch = (rec_idx, h_new)
-        frontier = rec_idx
+        with span(f"DeviceEngine.hop{l}"):
+            r_cap, e_cap = caps[l]
+            with span("DeviceEngine.expand"):
+                all_dst, all_val, needed = _hop_messages(
+                    n, state.H[l], csr, frontier, delta, batch,
+                    weighted=spec.weighted, self_dep=spec.self_dependent,
+                    e_cap=e_cap)
+                rec_idx, pos_r, n_rec = _unique_recipients(n, all_dst, r_cap)
+            overflow = overflow | (needed > e_cap) | (n_rec > r_cap)
+            sizes.append(torch.stack([n_rec, needed,
+                                      torch.zeros_like(needed)]))
+            with span("DeviceEngine.apply"):
+                mailbox = segment_sum(all_val, pos_r[all_dst.clamp(max=n)],
+                                      r_cap)
+                k_rows = _k_rows(n, state, batch, rec_idx, pos_r, r_cap)
+                S_rows, h_new, delta = _apply_hop(
+                    workload, params[l], eps[l], l, n, state, k_rows, patch,
+                    rec_idx, mailbox)
+            hops.append((rec_idx, S_rows, h_new))
+            patch = (rec_idx, h_new)
+            frontier = rec_idx
 
     # ---- phase 2: overflow-gated commit (dropped writes hit row n) -------
-    if not donate:
-        state = state.clone()
-    ok = ~overflow
+    with span("DeviceEngine.commit"):
+        if not donate:
+            state = state.clone()
+        ok = ~overflow
 
-    def gate(idx: torch.Tensor) -> torch.Tensor:
-        return torch.where(ok, idx, n)
+        def gate(idx: torch.Tensor) -> torch.Tensor:
+            return torch.where(ok, idx, n)
 
-    state.H[0].index_copy_(0, gate(fv), batch.feat_val)
-    for l, (rec, S_rows, h_new) in enumerate(hops):
-        state.S[l + 1].index_copy_(0, gate(rec), S_rows)
-        state.H[l + 1].index_copy_(0, gate(rec), h_new)
-    ones = torch.ones_like(batch.add_w)
-    state.k.index_add_(0, gate(batch.add_dst), ones)
-    state.k.index_add_(0, gate(batch.del_dst), -ones)
-    report = torch.cat([overflow.view(1).to(torch.int64),
-                        torch.stack(sizes).flatten(),
-                        torch.where(ok, frontier, n)])
+        state.H[0].index_copy_(0, gate(fv), batch.feat_val)
+        for l, (rec, S_rows, h_new) in enumerate(hops):
+            state.S[l + 1].index_copy_(0, gate(rec), S_rows)
+            state.H[l + 1].index_copy_(0, gate(rec), h_new)
+        ones = torch.ones_like(batch.add_w)
+        state.k.index_add_(0, gate(batch.add_dst), ones)
+        state.k.index_add_(0, gate(batch.del_dst), -ones)
+        report = torch.cat([overflow.view(1).to(torch.int64),
+                            torch.stack(sizes).flatten(),
+                            torch.where(ok, frontier, n)])
     return state, report
 
 
@@ -547,122 +556,130 @@ def _monotonic_hop(workload: Workload, params_l: dict, layer: int, n: int,
     H_pre, S_next, C_next = state.H[layer], state.S[layer + 1], \
         state.C[layer + 1]
     dev = frontier.device
-    pos_p = _patch_pos(n, patch[0])
+    with span("DeviceEngine.expand"):
+        pos_p = _patch_pos(n, patch[0])
+        edst, esrc, needed = _expand_frontier_edges(n, out_csr, frontier,
+                                                    e_cap)
+        overflow = needed > e_cap
 
-    edst, esrc, needed = _expand_frontier_edges(n, out_csr, frontier, e_cap)
-    overflow = needed > e_cap
+        # unified message stream: frontier edges + adds are candidates AND
+        # probes; deletes are probes only (their value must never grow S)
+        msg_dst = torch.cat([edst, batch.add_dst, batch.del_dst])
+        msg_src = torch.cat([esrc, batch.add_src, batch.del_src])
+        n_cand = edst.shape[0] + batch.add_dst.shape[0]
+        is_del = torch.arange(msg_dst.shape[0], device=dev) >= n_cand
+        valid = (msg_dst < n) & (msg_src < n)
 
-    # unified message stream: frontier edges + adds are candidates AND
-    # probes; deletes are probes only (their value must never grow S)
-    msg_dst = torch.cat([edst, batch.add_dst, batch.del_dst])
-    msg_src = torch.cat([esrc, batch.add_src, batch.del_src])
-    n_cand = edst.shape[0] + batch.add_dst.shape[0]
-    is_del = torch.arange(msg_dst.shape[0], device=dev) >= n_cand
-    valid = (msg_dst < n) & (msg_src < n)
+        # affected rows = unique message dsts (+ frontier for
+        # self-dependence)
+        all_dst = msg_dst
+        if workload.spec.self_dependent:
+            all_dst = torch.cat([all_dst, frontier])
+        rec_idx, pos, n_rec = _unique_recipients(n, all_dst, r_cap)
+        overflow = overflow | (n_rec > r_cap)
+        aff_c = rec_idx.clamp(max=n - 1)
+        real_row = rec_idx < n
+        slot = torch.where(valid, pos[msg_dst.clamp(max=n)], r_cap)
 
-    # affected rows = unique message dsts (+ frontier for self-dependence)
-    all_dst = msg_dst
-    if workload.spec.self_dependent:
-        all_dst = torch.cat([all_dst, frontier])
-    rec_idx, pos, n_rec = _unique_recipients(n, all_dst, r_cap)
-    overflow = overflow | (n_rec > r_cap)
-    aff_c = rec_idx.clamp(max=n - 1)
-    real_row = rec_idx < n
-    slot = torch.where(valid, pos[msg_dst.clamp(max=n)], r_cap)
+    with span("DeviceEngine.grow"):
+        vals = _patched(n, H_pre, pos_p, patch[1], msg_src)  # post-update
 
-    vals = _patched(n, H_pre, pos_p, patch[1], msg_src)  # post-update values
+        # ---- per-(message, dim) SHRINK classification, deduped per row ---
+        dst_c = msg_dst.clamp(max=n - 1)
+        covered = C_next[dst_c] == msg_src[:, None]
+        gone = is_del[:, None] | (sign * S_next[dst_c] > sign * vals)
+        dim_shrink = covered & gone & valid[:, None]
+        n_shrink = dim_shrink.any(dim=1).sum()
+        row_dim = segment_sum(dim_shrink.to(torch.float32), slot, r_cap) > 0
 
-    # ---- per-(message, dim) SHRINK classification, deduped per row -------
-    dst_c = msg_dst.clamp(max=n - 1)
-    covered = C_next[dst_c] == msg_src[:, None]
-    gone = is_del[:, None] | (sign * S_next[dst_c] > sign * vals)
-    dim_shrink = covered & gone & valid[:, None]
-    n_shrink = dim_shrink.any(dim=1).sum()
-    row_dim = segment_sum(dim_shrink.to(torch.float32), slot, r_cap) > 0
+        # ---- GROW candidate extremum + witnesses (also feeds the probe) --
+        cslot = torch.where(valid & ~is_del, slot, r_cap)
+        cand_S, cand_C = segment_extremum(agg, vals, cslot, r_cap, msg_src)
 
-    # ---- GROW candidate extremum + witnesses (also feeds the probe) ------
-    cslot = torch.where(valid & ~is_del, slot, r_cap)
-    cand_S, cand_C = segment_extremum(agg, vals, cslot, r_cap, msg_src)
+        S_pre_rows = S_next[aff_c]
+        C_pre_rows = C_next[aff_c]
 
-    S_pre_rows = S_next[aff_c]
-    C_pre_rows = C_next[aff_c]
-
-    # ---- re-cover probe: candidate ties-or-beats the lost extremum -------
-    recovered = row_dim & (sign * cand_S >= sign * S_pre_rows)
-    need = row_dim & ~recovered & real_row[:, None]
-    n_recover = recovered.sum()
-    n_pairs = need.sum()
-    n_reagg = need.any(dim=1).sum()
+        # ---- re-cover probe: candidate ties-or-beats the lost extremum ---
+        recovered = row_dim & (sign * cand_S >= sign * S_pre_rows)
+        need = row_dim & ~recovered & real_row[:, None]
+        n_recover = recovered.sum()
+        n_pairs = need.sum()
+        n_reagg = need.any(dim=1).sum()
 
     # ---- surviving (row, dim) cells: re-derive from the in-CSR -----------
-    if pull == "rows":
-        row_need = need.any(dim=1)
-        degs = torch.where(row_need, in_csr.length[aff_c], 0)
-        psrc, _, fid, pvalid, pull_total = _ragged_gather(n, in_csr, aff_c,
-                                                          degs, p_cap)
-        overflow = overflow | (pull_total > p_cap)
-        pvals = _patched(n, H_pre, pos_p, patch[1], psrc)
-        S_sh, C_sh = segment_extremum(agg, pvals,
-                                      torch.where(pvalid, fid, r_cap),
-                                      r_cap, psrc)
-        MK = row_need[:, None].expand_as(S_pre_rows).contiguous()
-        RG = torch.where(MK, S_sh, 0.0)
-        base_C = torch.where(MK, C_sh, C_pre_rows)
-    elif pull == "pairs":
-        overflow = overflow | (n_pairs > pd_cap)
-        pr, pdim = _masked_pairs(need, pd_cap, r_cap)
-        rows_pair = aff_c[pr.clamp(max=r_cap - 1)]
-        degs = torch.where(pr < r_cap, in_csr.length[rows_pair], 0)
-        psrc, _, fid, pvalid, pull_total = _ragged_gather(n, in_csr,
-                                                          rows_pair, degs,
-                                                          p_cap)
-        overflow = overflow | (pull_total > p_cap)
-        pdim_e = pdim[fid]
-        psrc_c = psrc.clamp(max=n - 1)
-        pslot = pos_p[psrc_c]
-        pvals = torch.where(pslot >= 0,
-                            patch[1][pslot.clamp(min=0), pdim_e],
-                            H_pre[psrc_c, pdim_e])
-        S_pair, C_pair = segment_extremum(agg, pvals,
-                                          torch.where(pvalid, fid, pd_cap),
-                                          pd_cap, psrc)
-        MK = _scatter_cells(torch.zeros_like(need), pr, pdim, True)
-        RG = _scatter_cells(torch.zeros_like(S_pre_rows), pr, pdim, S_pair)
-        base_C = _scatter_cells(C_pre_rows, pr, pdim, C_pair)
-    else:
-        raise ValueError(f"pull must be 'pairs' or 'rows', not {pull!r}")
+    with span("DeviceEngine.shrink"):
+        if pull == "rows":
+            row_need = need.any(dim=1)
+            degs = torch.where(row_need, in_csr.length[aff_c], 0)
+            psrc, _, fid, pvalid, pull_total = _ragged_gather(
+                n, in_csr, aff_c, degs, p_cap)
+            overflow = overflow | (pull_total > p_cap)
+            pvals = _patched(n, H_pre, pos_p, patch[1], psrc)
+            S_sh, C_sh = segment_extremum(agg, pvals,
+                                          torch.where(pvalid, fid, r_cap),
+                                          r_cap, psrc)
+            MK = row_need[:, None].expand_as(S_pre_rows).contiguous()
+            RG = torch.where(MK, S_sh, 0.0)
+            base_C = torch.where(MK, C_sh, C_pre_rows)
+        elif pull == "pairs":
+            overflow = overflow | (n_pairs > pd_cap)
+            pr, pdim = _masked_pairs(need, pd_cap, r_cap)
+            rows_pair = aff_c[pr.clamp(max=r_cap - 1)]
+            degs = torch.where(pr < r_cap, in_csr.length[rows_pair], 0)
+            psrc, _, fid, pvalid, pull_total = _ragged_gather(
+                n, in_csr, rows_pair, degs, p_cap)
+            overflow = overflow | (pull_total > p_cap)
+            pdim_e = pdim[fid]
+            psrc_c = psrc.clamp(max=n - 1)
+            pslot = pos_p[psrc_c]
+            pvals = torch.where(pslot >= 0,
+                                patch[1][pslot.clamp(min=0), pdim_e],
+                                H_pre[psrc_c, pdim_e])
+            S_pair, C_pair = segment_extremum(agg, pvals,
+                                              torch.where(pvalid, fid,
+                                                          pd_cap),
+                                              pd_cap, psrc)
+            MK = _scatter_cells(torch.zeros_like(need), pr, pdim, True)
+            RG = _scatter_cells(torch.zeros_like(S_pre_rows), pr, pdim,
+                                S_pair)
+            base_C = _scatter_cells(C_pre_rows, pr, pdim, C_pair)
+        else:
+            raise ValueError(f"pull must be 'pairs' or 'rows', not {pull!r}")
 
-    # ---- GROW: the candidate's witness where it wins the fold ------------
-    base_S = torch.where(MK, RG, S_pre_rows)
-    cand_wins = (sign * cand_S >= sign * base_S) & (cand_C >= 0)
-    C_new = torch.where(cand_wins, cand_C, base_C)
+    with span("DeviceEngine.apply"):
+        # ---- GROW: the candidate's witness where it wins the fold --------
+        base_S = torch.where(MK, RG, S_pre_rows)
+        cand_wins = (sign * cand_S >= sign * base_S) & (cand_C >= 0)
+        C_new = torch.where(cand_wins, cand_C, base_C)
 
-    # ---- apply (fused select + fold + finite-mask + product) -------------
-    last = layer == workload.spec.n_layers - 1
-    maximize = sign > 0
-    if workload.family == "gc":
-        S_new, h_new = extremum_apply(S_pre_rows, cand_S, params_l["w"],
-                                      params_l["b"], reagg=RG, mask=MK,
-                                      maximize=maximize, relu=not last)
-    elif workload.family == "sage":
-        # fused neighbour term; the self term stays a plain matmul, added
-        # in the reference's order (the frontier filter compares bits)
-        S_new, h_new = extremum_apply(S_pre_rows, cand_S, params_l["w_nbr"],
-                                      params_l["b"], reagg=RG, mask=MK,
-                                      maximize=maximize, relu=False)
-        h_prev = _patched(n, H_pre, pos_p, patch[1], rec_idx)
-        h_new = h_new + h_prev @ params_l["w_self"]
-        if not last:
-            h_new = torch.relu(h_new)
-    else:
-        raise ValueError(f"no monotonic hop apply for the "
-                         f"{workload.family!r} family")
+        # ---- apply (fused select + fold + finite-mask + product) ---------
+        last = layer == workload.spec.n_layers - 1
+        maximize = sign > 0
+        if workload.family == "gc":
+            S_new, h_new = extremum_apply(S_pre_rows, cand_S, params_l["w"],
+                                          params_l["b"], reagg=RG, mask=MK,
+                                          maximize=maximize, relu=not last)
+        elif workload.family == "sage":
+            # fused neighbour term; the self term stays a plain matmul,
+            # added in the reference's order (the frontier filter compares
+            # bits)
+            S_new, h_new = extremum_apply(S_pre_rows, cand_S,
+                                          params_l["w_nbr"], params_l["b"],
+                                          reagg=RG, mask=MK,
+                                          maximize=maximize, relu=False)
+            h_prev = _patched(n, H_pre, pos_p, patch[1], rec_idx)
+            h_new = h_new + h_prev @ params_l["w_self"]
+            if not last:
+                h_new = torch.relu(h_new)
+        else:
+            raise ValueError(f"no monotonic hop apply for the "
+                             f"{workload.family!r} family")
 
-    # ---- filtered propagation: only rows whose embedding changed ---------
-    changed = (h_new != state.H[layer + 1][aff_c]).any(dim=1) & real_row
-    frontier_next = torch.where(changed, rec_idx, n)
-    sizes = torch.stack([n_rec, needed, pull_total, n_pairs])
-    stats = torch.stack([n_shrink, n_reagg, n_pairs, n_recover])
+        # ---- filtered propagation: only rows whose embedding changed -----
+        changed = (h_new != state.H[layer + 1][aff_c]).any(dim=1) & real_row
+        frontier_next = torch.where(changed, rec_idx, n)
+        sizes = torch.stack([n_rec, needed, pull_total, n_pairs])
+        stats = torch.stack([n_shrink, n_reagg, n_pairs, n_recover])
     return (rec_idx, S_new, C_new, h_new), frontier_next, overflow, sizes, \
         stats
 
@@ -699,35 +716,37 @@ def propagate_monotonic(workload: Workload, n: int,
     sizes = []
     for l in range(L):
         r_cap, e_cap, p_cap, pd_cap = caps[l]
-        hop_patch, frontier, ovf, hop_sizes, hop_stats = _monotonic_hop(
-            workload, params[l], l, n, state, out_csr, in_csr, batch,
-            frontier, patch, r_cap=r_cap, e_cap=e_cap, p_cap=p_cap,
-            pd_cap=pd_cap, pull=pull)
-        overflow = overflow | ovf
-        stats = stats + hop_stats
+        with span(f"DeviceEngine.hop{l}"):
+            hop_patch, frontier, ovf, hop_sizes, hop_stats = _monotonic_hop(
+                workload, params[l], l, n, state, out_csr, in_csr, batch,
+                frontier, patch, r_cap=r_cap, e_cap=e_cap, p_cap=p_cap,
+                pd_cap=pd_cap, pull=pull)
+            overflow = overflow | ovf
+            stats = stats + hop_stats
         hops.append(hop_patch)
         sizes.append(hop_sizes)
         patch = (hop_patch[0], hop_patch[3])
 
     # ---- phase 2: overflow-gated commit (dropped writes hit row n) -------
-    if not donate:
-        state = state.clone()
-    ok = ~overflow
+    with span("DeviceEngine.commit"):
+        if not donate:
+            state = state.clone()
+        ok = ~overflow
 
-    def gate(idx: torch.Tensor) -> torch.Tensor:
-        return torch.where(ok, idx, n)
+        def gate(idx: torch.Tensor) -> torch.Tensor:
+            return torch.where(ok, idx, n)
 
-    state.H[0].index_copy_(0, gate(fv), batch.feat_val)
-    for l, (rec, S_new, C_new, h_new) in enumerate(hops):
-        state.S[l + 1].index_copy_(0, gate(rec), S_new)
-        state.C[l + 1].index_copy_(0, gate(rec), C_new)
-        state.H[l + 1].index_copy_(0, gate(rec), h_new)
-    ones = torch.ones_like(batch.add_w)
-    state.k.index_add_(0, gate(batch.add_dst), ones)
-    state.k.index_add_(0, gate(batch.del_dst), -ones)
-    report = torch.cat([overflow.view(1).to(torch.int64),
-                        torch.stack(sizes).flatten(), stats,
-                        torch.where(ok, frontier, n)])
+        state.H[0].index_copy_(0, gate(fv), batch.feat_val)
+        for l, (rec, S_new, C_new, h_new) in enumerate(hops):
+            state.S[l + 1].index_copy_(0, gate(rec), S_new)
+            state.C[l + 1].index_copy_(0, gate(rec), C_new)
+            state.H[l + 1].index_copy_(0, gate(rec), h_new)
+        ones = torch.ones_like(batch.add_w)
+        state.k.index_add_(0, gate(batch.add_dst), ones)
+        state.k.index_add_(0, gate(batch.del_dst), -ones)
+        report = torch.cat([overflow.view(1).to(torch.int64),
+                            torch.stack(sizes).flatten(), stats,
+                            torch.where(ok, frontier, n)])
     return state, report
 
 
@@ -782,59 +801,61 @@ def _bounded_hop(workload: Workload, layer_fn, layer: int, n: int,
     """
     agg = workload.agg
     H_pre = state.H[layer]
-    pos_p = _patch_pos(n, patch[0])
-
-    edst, _, needed = _expand_frontier_edges(n, out_csr, frontier, e_cap)
-    overflow = needed > e_cap
-    dsts = [edst, batch.add_dst, batch.del_dst]
-    if workload.spec.self_dependent:
-        dsts.append(frontier)
-    rec_idx, pos_r, n_rec = _unique_recipients(n, torch.cat(dsts), r_cap)
-    overflow = overflow | (n_rec > r_cap)
-    aff_c = rec_idx.clamp(max=n - 1)
-    real_row = rec_idx < n
-    k_rows = _k_rows(n, state, batch, rec_idx, pos_r, r_cap)
+    with span("DeviceEngine.expand"):
+        pos_p = _patch_pos(n, patch[0])
+        edst, _, needed = _expand_frontier_edges(n, out_csr, frontier, e_cap)
+        overflow = needed > e_cap
+        dsts = [edst, batch.add_dst, batch.del_dst]
+        if workload.spec.self_dependent:
+            dsts.append(frontier)
+        rec_idx, pos_r, n_rec = _unique_recipients(n, torch.cat(dsts), r_cap)
+        overflow = overflow | (n_rec > r_cap)
+        aff_c = rec_idx.clamp(max=n - 1)
+        real_row = rec_idx < n
+        k_rows = _k_rows(n, state, batch, rec_idx, pos_r, r_cap)
 
     # refresh-all pull: the affected rows' post-batch in-neighbourhoods,
     # post-update layer-l values read through the previous hop's patch
-    degs = torch.where(real_row, in_csr.length[aff_c], 0)
-    psrc, _, fid, pvalid, pull_total = _ragged_gather(n, in_csr, aff_c, degs,
-                                                      p_cap)
-    overflow = overflow | (pull_total > p_cap)
-    hmax = degs.max()
-    pvals = _patched(n, H_pre, pos_p, patch[1], psrc)
-    pseg = torch.where(pvalid, fid, r_cap)
-    if agg.name == "pna":
-        # the first moment is a bag sum over the [r_cap, h_cap] rectangle
-        # of in-neighbour ids (embedding_bag); s2 and the max with its
-        # witness stay segment ops over the same pull
-        overflow = overflow | (hmax > h_cap)
-        s1 = embedding_bag(_patched_table(n, H_pre, patch),
-                           _bag_rectangle(n, degs, fid, pvalid, psrc, r_cap,
-                                          h_cap),
-                           padding_idx=n)
-        s2, mx, mref = agg.moments(pvals, psrc, pseg, r_cap)
-        x_rows = agg.tower(s1, s2, mx, k_rows)
-        aux = (s1, s2, mx, mref)
-    else:
-        x_rows, aux = agg.reaggregate(pvals, psrc, pseg, r_cap, k_rows)
+    with span("DeviceEngine.pull"):
+        degs = torch.where(real_row, in_csr.length[aff_c], 0)
+        psrc, _, fid, pvalid, pull_total = _ragged_gather(n, in_csr, aff_c,
+                                                          degs, p_cap)
+        overflow = overflow | (pull_total > p_cap)
+        hmax = degs.max()
+        pvals = _patched(n, H_pre, pos_p, patch[1], psrc)
+        pseg = torch.where(pvalid, fid, r_cap)
+        if agg.name == "pna":
+            # the first moment is a bag sum over the [r_cap, h_cap]
+            # rectangle of in-neighbour ids (embedding_bag); s2 and the max
+            # with its witness stay segment ops over the same pull
+            overflow = overflow | (hmax > h_cap)
+            s1 = embedding_bag(_patched_table(n, H_pre, patch),
+                               _bag_rectangle(n, degs, fid, pvalid, psrc,
+                                              r_cap, h_cap),
+                               padding_idx=n)
+            s2, mx, mref = agg.moments(pvals, psrc, pseg, r_cap)
+            x_rows = agg.tower(s1, s2, mx, k_rows)
+            aux = (s1, s2, mx, mref)
+        else:
+            x_rows, aux = agg.reaggregate(pvals, psrc, pseg, r_cap, k_rows)
 
     # ---- apply + certified deferral + filtered propagation ---------------
-    h_prev = _patched(n, H_pre, pos_p, patch[1], rec_idx)
-    h_new = layer_fn(h_prev, x_rows)   # S holds x: normalize is identity
-    stored = state.H[layer + 1][aff_c]
-    changed = (h_new != stored).any(dim=1) & real_row
-    b = (h_new - stored).abs().amax(dim=1)
-    defer = changed & (b <= tau)   # tau = 0 at the last hop: never defers
-    write = changed & ~defer
-    viol = write & (tau > 0)
-    h_out = torch.where(write[:, None], h_new, stored)
-    frontier_next = torch.where(write, rec_idx, n)
-    i_stats = torch.stack([real_row.sum(), defer.sum(), viol.sum()])
-    f_stats = torch.stack([torch.where(defer, b, 0.0).max(),
-                           torch.where(write, h_new.abs().amax(dim=1),
-                                       0.0).max()])
-    sizes = torch.stack([n_rec, needed, pull_total, hmax])
+    with span("DeviceEngine.apply"):
+        h_prev = _patched(n, H_pre, pos_p, patch[1], rec_idx)
+        h_new = layer_fn(h_prev, x_rows)   # S holds x: normalize is identity
+        stored = state.H[layer + 1][aff_c]
+        changed = (h_new != stored).any(dim=1) & real_row
+        b = (h_new - stored).abs().amax(dim=1)
+        defer = changed & (b <= tau)   # tau = 0 at the last hop: never defers
+        write = changed & ~defer
+        viol = write & (tau > 0)
+        h_out = torch.where(write[:, None], h_new, stored)
+        frontier_next = torch.where(write, rec_idx, n)
+        i_stats = torch.stack([real_row.sum(), defer.sum(), viol.sum()])
+        f_stats = torch.stack([torch.where(defer, b, 0.0).max(),
+                               torch.where(write, h_new.abs().amax(dim=1),
+                                           0.0).max()])
+        sizes = torch.stack([n_rec, needed, pull_total, hmax])
     return (rec_idx, x_rows, aux, h_out), frontier_next, overflow, sizes, \
         i_stats, f_stats
 
@@ -875,39 +896,41 @@ def propagate_bounded(workload: Workload, n: int,
     sizes = []
     for l in range(L):
         r_cap, e_cap, p_cap, h_cap = caps[l]
-        hop_patch, frontier, ovf, hop_sizes, hop_i, hop_f = _bounded_hop(
-            workload, layers[l], l, n, state, out_csr, in_csr, batch,
-            frontier, patch, taus[l + 1], r_cap=r_cap, e_cap=e_cap,
-            p_cap=p_cap, h_cap=h_cap)
-        overflow = overflow | ovf
-        i_stats = i_stats + hop_i
+        with span(f"DeviceEngine.hop{l}"):
+            hop_patch, frontier, ovf, hop_sizes, hop_i, hop_f = _bounded_hop(
+                workload, layers[l], l, n, state, out_csr, in_csr, batch,
+                frontier, patch, taus[l + 1], r_cap=r_cap, e_cap=e_cap,
+                p_cap=p_cap, h_cap=h_cap)
+            overflow = overflow | ovf
+            i_stats = i_stats + hop_i
         hops.append(hop_patch)
         sizes.append(hop_sizes)
         f_rows.append(hop_f)
         patch = (hop_patch[0], hop_patch[3])
 
     # ---- phase 2: overflow-gated commit (dropped writes hit row n) -------
-    if not donate:
-        state = state.clone()
-    ok = ~overflow
+    with span("DeviceEngine.commit"):
+        if not donate:
+            state = state.clone()
+        ok = ~overflow
 
-    def gate(idx: torch.Tensor) -> torch.Tensor:
-        return torch.where(ok, idx, n)
+        def gate(idx: torch.Tensor) -> torch.Tensor:
+            return torch.where(ok, idx, n)
 
-    state.H[0].index_copy_(0, gate(fv), batch.feat_val)
-    for l, (rec, x_rows, aux, h_out) in enumerate(hops):
-        state.S[l + 1].index_copy_(0, gate(rec), x_rows)
-        state.H[l + 1].index_copy_(0, gate(rec), h_out)
-        for a, v in zip(state.A[l + 1], aux):
-            a.index_copy_(0, gate(rec), v)
-    ones = torch.ones_like(batch.add_w)
-    state.k.index_add_(0, gate(batch.add_dst), ones)
-    state.k.index_add_(0, gate(batch.del_dst), -ones)
-    # the floats travel as their bits: eps and M feed the certified bound
-    f_bits = (torch.stack(f_rows) * ok).view(torch.int32).to(torch.int64)
-    report = torch.cat([overflow.view(1).to(torch.int64),
-                        torch.stack(sizes).flatten(), i_stats * ok,
-                        f_bits.flatten(), torch.where(ok, frontier, n)])
+        state.H[0].index_copy_(0, gate(fv), batch.feat_val)
+        for l, (rec, x_rows, aux, h_out) in enumerate(hops):
+            state.S[l + 1].index_copy_(0, gate(rec), x_rows)
+            state.H[l + 1].index_copy_(0, gate(rec), h_out)
+            for a, v in zip(state.A[l + 1], aux):
+                a.index_copy_(0, gate(rec), v)
+        ones = torch.ones_like(batch.add_w)
+        state.k.index_add_(0, gate(batch.add_dst), ones)
+        state.k.index_add_(0, gate(batch.del_dst), -ones)
+        # the floats travel as their bits: eps and M feed the certified bound
+        f_bits = (torch.stack(f_rows) * ok).view(torch.int32).to(torch.int64)
+        report = torch.cat([overflow.view(1).to(torch.int64),
+                            torch.stack(sizes).flatten(), i_stats * ok,
+                            f_bits.flatten(), torch.where(ok, frontier, n)])
     return state, report
 
 
@@ -976,15 +999,20 @@ class DeviceEngine:
         self.graph = graph
         self.n = graph.n
         self.monotonic = workload.agg.algebra == "monotonic"
-        self.state = DeviceState(
-            H=tuple(_with_trash_row(h, self.device) for h in state_np.H),
-            S=(_upload(state_np.S[0], self.device),)
-            + tuple(_with_trash_row(s, self.device) for s in state_np.S[1:]),
-            k=_with_trash_row(graph.in_degree, self.device),
-            C=(_upload(state_np.C[0], self.device),)
-            + tuple(_with_trash_row(c, self.device, fill=-1)
-                    for c in state_np.C[1:]) if self.monotonic else (),
-            A=self._device_aux(state_np.A) if self.bounded else ())
+        with span("DeviceEngine.upload", setup=True):
+            self.state = DeviceState(
+                H=tuple(_with_trash_row(h, self.device) for h in state_np.H),
+                S=(_upload(state_np.S[0], self.device),)
+                + tuple(_with_trash_row(s, self.device)
+                        for s in state_np.S[1:]),
+                k=_with_trash_row(graph.in_degree, self.device),
+                C=(_upload(state_np.C[0], self.device),)
+                + tuple(_with_trash_row(c, self.device, fill=-1)
+                        for c in state_np.C[1:]) if self.monotonic else (),
+                A=self._device_aux(state_np.A) if self.bounded else ())
+            self.out_mirror = DeviceCSRMirror(graph.out, device=self.device)
+            self.in_mirror = DeviceCSRMirror(graph.inn, device=self.device) \
+                if self.monotonic or self.bounded else None
         if self.bounded:
             # host-owned certified-bound accounting: eps is authoritative
             # state (it travels with InferenceState), M and kmax are bounds
@@ -1004,9 +1032,6 @@ class DeviceEngine:
         if pull is None:
             pull = "pairs" if self.device.type == "cuda" else "rows"
         self.pull = pull
-        self.out_mirror = DeviceCSRMirror(graph.out, device=self.device)
-        self.in_mirror = DeviceCSRMirror(graph.inn, device=self.device) \
-            if self.monotonic or self.bounded else None
         self._bucket = min_bucket
         self._rung = 0          # transient retry boost (0 once sizes known)
         self._hw = None         # per-hop high-water marks: [L, 3] (r, e, 0)
@@ -1156,6 +1181,7 @@ class DeviceEngine:
             ws=torch.zeros((2, cap), dtype=torch.float32, device=dev),
             feat_val=torch.zeros((cap, d0), dtype=torch.float32, device=dev))
 
+    @spanned("DeviceEngine.warm", setup=True)
     def _warm(self) -> None:
         """Run the rung-0 cap schedule once on a sentinel (all-padding)
         batch -- a bit-exact no-op on the state that loads the kernels and
@@ -1168,6 +1194,7 @@ class DeviceEngine:
         self._rung = 0
 
     # -- routing -----------------------------------------------------------
+    @spanned("DeviceEngine.route")
     def _route(self, batch):
         """Apply the batch's topology to the host graph and build the padded
         device batch + the mirror rows it touched.  Does NOT refresh the
@@ -1219,6 +1246,7 @@ class DeviceEngine:
         return dev_batch, out_rows, in_rows
 
     # -- dispatch / resolve ------------------------------------------------
+    @spanned("DeviceEngine.propagate")
     def _run(self, dev_batch: BatchDev, caps: tuple):
         if self.bounded:
             return propagate_bounded(
@@ -1251,7 +1279,8 @@ class DeviceEngine:
         None (invertible), [4] (monotonic), or ([3] ints, [L+1, 2] floats)
         (bounded)."""
         L = self.workload.spec.n_layers
-        rep = report.cpu().numpy()
+        with span("DeviceEngine.wait"):
+            rep = report.cpu().numpy()
         ch = 3 if not (self.monotonic or self.bounded) else 4
         end = 1 + ch * L
         sizes = rep[1:end].reshape(L, ch)
@@ -1290,9 +1319,10 @@ class DeviceEngine:
                                        "overflowing -- graph inconsistency?")
             else:
                 self._rung = 0
-            self.state, report = self._run(dev_batch, new_caps)
+            with span("DeviceEngine.retry"):
+                self.state, report = self._run(dev_batch, new_caps)
+                overflow, sizes, stats, final = self._read(report)
             caps = new_caps
-            overflow, sizes, stats, final = self._read(report)
         self._note_sizes(sizes)
         self._rung = 0
         self._last_affected = final[final < self.n].astype(np.int64)

@@ -19,6 +19,8 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
+from repro_torch.tracing import span
+
 _GROW = 1.5  # row slack growth factor
 _MIN_SLACK = 4
 
@@ -156,17 +158,19 @@ class DynamicGraph:
             weight = np.ones(src.shape[0], dtype=np.float32)
         weight = np.asarray(weight, dtype=np.float32)
         self.n = n
-        # build CSR out (rows keyed by src) and in (rows keyed by dst)
-        order = np.argsort(src, kind="stable")
-        out_off = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(np.bincount(src, minlength=n), out=out_off[1:])
-        self.out = _AdjHalf(n, dst[order], out_off, weight[order])
-        order_in = np.argsort(dst, kind="stable")
-        in_off = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(np.bincount(dst, minlength=n), out=in_off[1:])
-        self.inn = _AdjHalf(n, src[order_in], in_off, weight[order_in])
-        self.in_degree = np.bincount(dst, minlength=n).astype(np.float32)
-        self._edge_set = set(zip(src.tolist(), dst.tolist()))
+        with span("DynamicGraph.csr", setup=True):
+            # build CSR out (rows keyed by src) and in (rows keyed by dst)
+            order = np.argsort(src, kind="stable")
+            out_off = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(np.bincount(src, minlength=n), out=out_off[1:])
+            self.out = _AdjHalf(n, dst[order], out_off, weight[order])
+            order_in = np.argsort(dst, kind="stable")
+            in_off = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(np.bincount(dst, minlength=n), out=in_off[1:])
+            self.inn = _AdjHalf(n, src[order_in], in_off, weight[order_in])
+            self.in_degree = np.bincount(dst, minlength=n).astype(np.float32)
+        with span("DynamicGraph.edge_set", setup=True):
+            self._edge_set = set(zip(src.tolist(), dst.tolist()))
         self.num_edges = int(src.shape[0])
 
     # -- queries ---------------------------------------------------------

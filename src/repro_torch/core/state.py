@@ -18,6 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.tracing import span
+
 from .aggregators import compute_contributors
 from .full import bounded_aux, full_inference
 from .graph import DynamicGraph
@@ -48,18 +50,22 @@ class InferenceState:
         reaggregation the pass runs (:func:`bounded_aux`), not from the
         host's ``compute_bounded_aux``, which walks every edge and dim in
         NumPy."""
-        x_t = torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
-        src, dst, w = graph.coo()
-        H_t, S_t = full_inference(workload, params, x_t, src, dst, w,
-                                  graph.in_degree)
-        H = [_to_numpy(h) for h in H_t]
-        S = [_to_numpy(s) for s in S_t]
+        with span("InferenceState.full_pass", setup=True):
+            x_t = torch.as_tensor(np.asarray(x, dtype=np.float32),
+                                  device=device)
+            src, dst, w = graph.coo()
+            H_t, S_t = full_inference(workload, params, x_t, src, dst, w,
+                                      graph.in_degree)
+            H = [_to_numpy(h) for h in H_t]
+            S = [_to_numpy(s) for s in S_t]
         agg = workload.agg
-        C = compute_contributors(agg, H, S, graph) \
-            if agg.algebra == "monotonic" else None
-        A = eps = None
+        C = A = eps = None
+        if agg.algebra == "monotonic":
+            with span("InferenceState.contributors", setup=True):
+                C = compute_contributors(agg, H, S, graph)
         if agg.tracks_aux:
-            A = aux_to_numpy(bounded_aux(workload, H_t, src, dst))
+            with span("InferenceState.aux", setup=True):
+                A = aux_to_numpy(bounded_aux(workload, H_t, src, dst))
             eps = np.zeros(workload.spec.n_layers + 1, dtype=np.float32)
         return cls(H=H, S=S, k=graph.in_degree.copy(), C=C, A=A, eps=eps)
 

@@ -18,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from repro_torch.tracing import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("delta_apply", "mlp_apply", "extremum_apply", "embedding_bag",
@@ -89,6 +91,7 @@ def build_all(names=SOURCES) -> float:
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built first if missing or stale."""
     if name not in _LIBS:
-        build_all((name,))
-        _LIBS[name] = ctypes.CDLL(str(lib_path(name)))
+        with span("kernels.load", setup=True):
+            build_all((name,))
+            _LIBS[name] = ctypes.CDLL(str(lib_path(name)))
     return _LIBS[name]
