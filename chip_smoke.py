@@ -41,7 +41,11 @@ share).  Every launch count is set to 0 just before a session and read
 just after it; each session with a kernel must have launched it on every
 hop of every batch, and every session holds every layer against the
 port's own full-inference oracle.  The monotonic sessions also hold S[1]
-bit-equal to the oracle's and the witness invariant
+bit-equal to the oracle's, hold shrink_pull (the ``"pairs"`` SHRINK
+pull, launched once a hop) to its plain version on the card tensors of
+the last batch's hops -- MK, witnesses and pulled count equal, RG
+bit-equal with -0.0 equal to 0.0 -- and time both at the hop that pulled
+the most lanes against its bytes bound, and hold the witness invariant
 S[l][v,d] == H[l-1][C[l][v,d], d] exactly, on the device, and report
 their SHRINK counters and filter pass share; the bounded ones hold their
 aux state A to a fresh reaggregation of the final state (sums within
@@ -468,6 +472,80 @@ def in_turns(fns: dict) -> dict:
     second = {k: device_ms(f) for k, f in reversed(list(fns.items()))}
     return {k: (statistics.median([first[k], second[k]]),
                 [first[k], second[k]]) for k in fns}
+
+
+def shrink_pull_bytes(args) -> int:
+    """The least bytes one shrink_pull call (its operands ``args``) moves:
+    4 a pulled lane (a needed cell's value of one in-edge), 16 an in-edge
+    of a needy row (its source id and patch slot) and 13 a cell of the
+    ``[R, d]`` slab (need and the old witness read, RG and the witness
+    written)."""
+    need, aff, _, length = args[:4]
+    R, d = need.shape
+    cells = need.sum(dim=1)
+    deg = length[aff]
+    return int(4 * (deg * cells).sum() + 16 * deg[cells > 0].sum()
+               + 13 * R * d)
+
+
+def hold_shrink_pull(got, want, label: str) -> None:
+    """shrink_pull's bars against its plain version: MK, the witnesses and
+    the pulled count equal, RG bit-equal with -0.0 equal to 0.0."""
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    for what, x, y in (("MK", got[0], want[0]), ("base_C", got[2], want[2]),
+                       ("pull_total", got[3], want[3])):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{label}: shrink_pull's {what} differs "
+                                 f"from its plain version")
+
+
+@contextlib.contextmanager
+def kept_shrink_pulls(hops: int):
+    """While open, the device engine's shrink_pull calls also keep their
+    operands, the last ``hops`` calls' (references, not copies), in the
+    list this yields."""
+    import repro_torch.core.device_engine as engine
+    kept, fn = [], engine.shrink_pull
+
+    def keeping(*args, **kwargs):
+        kept.append((args, kwargs))
+        del kept[:-hops]
+        return fn(*args, **kwargs)
+
+    engine.shrink_pull = keeping
+    try:
+        yield kept
+    finally:
+        engine.shrink_pull = fn
+
+
+def check_shrink_pull(kept: list, label: str) -> dict:
+    """shrink_pull against its plain version (:func:`hold_shrink_pull`) on
+    each kept call's card tensors, both timed (:func:`device_ms`) at the
+    call that pulled the most lanes, with the bytes bound there."""
+    from repro_torch.kernels.shrink_pull import shrink_pull
+    from repro_torch.kernels.shrink_pull.ref import shrink_pull_ref
+    if not kept:
+        raise AssertionError(f"{label}: no shrink_pull call to check")
+    pulled, err = [], 0.0
+    for hop, (args, kwargs) in enumerate(kept):
+        got = shrink_pull(*args, **kwargs)
+        want = shrink_pull_ref(*args, **kwargs)
+        hold_shrink_pull(got, want, f"{label} hop {hop}")
+        err = max(err, torch.where(got[1] == want[1], 0.0,
+                                   (got[1] - want[1]).abs()).max().item())
+        pulled.append(int(got[3]))
+    hop = max(range(len(kept)), key=pulled.__getitem__)
+    args, kwargs = kept[hop]
+    need = args[0]
+    b_ms, b_by = bound_ms(shrink_pull_bytes(args), 0)
+    return dict(hop=hop, R=need.shape[0], d=need.shape[1],
+                cells=int(need.sum()), pulled_lanes=pulled[hop],
+                pd_cap=kwargs["pd_cap"], p_cap=kwargs["p_cap"],
+                max_abs_err=err,
+                ms=device_ms(lambda: shrink_pull(*args, **kwargs)),
+                plain_ms=device_ms(lambda: shrink_pull_ref(*args, **kwargs)),
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def hold_hop(label: str, Sk, hk, Sr, hr) -> None:
@@ -1386,10 +1464,13 @@ def run_session(workload: str, counters: dict, kernel: str | None) -> dict:
     eng = session.engine.impl
     H_start = [h.clone() for h in eng.state.H] \
         if eng.monotonic or eng.bounded else None
+    L = ARXIV["n_layers"]
+    pairs = eng.monotonic and eng.pull == "pairs"
     reset_counts(counters)
-    report = session.ingest(updates[:-N_PROFILED], batch_size=BATCH)
-    torch.cuda.synchronize()
-    profiled, report_p = profile_window(session, updates[-N_PROFILED:])
+    with kept_shrink_pulls(L) as kept:
+        report = session.ingest(updates[:-N_PROFILED], batch_size=BATCH)
+        torch.cuda.synchronize()
+        profiled, report_p = profile_window(session, updates[-N_PROFILED:])
     launches = {name: fn.launches for name, fn in counters.items()}
     # the hop kernels' launches by shape (R, Din[, Dh], Dout), for the
     # by-rung timing after the sessions
@@ -1407,12 +1488,19 @@ def run_session(workload: str, counters: dict, kernel: str | None) -> dict:
             raise AssertionError(f"{workload}: {name} launches by route "
                                  f"{routes[name]}; the main path's shapes "
                                  f"must take the resident routes")
-    L = ARXIV["n_layers"]
     n_batches = report.n_batches + report_p.n_batches
     if report.n_batches < 20 or (kernel is not None
                                  and launches[kernel] < L * n_batches):
         raise AssertionError(f"{workload}: {launches} launches for "
                              f"{n_batches} batches x {L} layers")
+    # the "pairs" SHRINK pull: one kernel launch a hop of every attempt,
+    # held to its plain version on the last attempt's hops
+    if pairs and launches["shrink_pull"] < L * n_batches:
+        raise AssertionError(f"{workload}: shrink_pull launched "
+                             f"{launches['shrink_pull']} times for "
+                             f"{n_batches} batches x {L} layers")
+    pull_check = check_shrink_pull(kept, workload) if pairs else None
+    kept.clear()
 
     state = session.sync()
     x = torch.as_tensor(state.H[0], device=DEVICE)
@@ -1471,6 +1559,7 @@ def run_session(workload: str, counters: dict, kernel: str | None) -> dict:
                                  f"oracle's")
         result.update(
             pull=eng.pull, witnesses_checked=check_witnesses(eng),
+            shrink_pull=pull_check,
             counters={f: sum(getattr(r, f) for r in results) for f in (
                 "shrink_events", "rows_reaggregated", "dims_reaggregated",
                 "recover_hits")})
@@ -4107,6 +4196,7 @@ def prepare() -> tuple[str, dict]:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mlp_apply import mlp_apply
     from repro_torch.kernels.segment_mm import segment_mm
+    from repro_torch.kernels.shrink_pull import shrink_pull
 
     # ---- phase 1: build --------------------------------------------------
     build_s = _build.build_all()
@@ -4133,7 +4223,8 @@ def prepare() -> tuple[str, dict]:
     return card, {"delta_apply": delta_apply, "mlp_apply": mlp_apply,
                   "extremum_apply": extremum_apply,
                   "embedding_bag": embedding_bag, "segment_mm": segment_mm,
-                  "flash_attention": flash_attention}
+                  "flash_attention": flash_attention,
+                  "shrink_pull": shrink_pull}
 
 
 def main() -> int:
@@ -4261,6 +4352,19 @@ def main() -> int:
             prev_design="K-chunked route" if name == "extremum_apply"
             else "tiled route",
             main_path_prev_ms=rungs[name]["prev_ms"])
+    # shrink_pull at the gs-max session's hop that pulled the most lanes,
+    # held and timed there (run_session); no TPU kernel did this step
+    row = next(s["shrink_pull"] for s in sessions
+               if s["workload"] == "gs-max")
+    kernels.append(dict(
+        name="shrink_pull", route="cuda",
+        source="src/repro_torch/kernels/csrc/shrink_pull.cu", replaces=None,
+        launches=launches["shrink_pull"], max_abs_err=row["max_abs_err"],
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=None,
+        shape="R={R} d={d} cells={cells} pulled={pulled_lanes}".format(
+            **row),
+        passed=True))
     # embedding_bag at the largest rectangle the gp-m session's hops used
     B, hot = max(((c[0], c[3]) for c in pnm["hop_caps"]),
                  key=lambda c: c[0] * c[1])

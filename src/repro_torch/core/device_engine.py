@@ -67,12 +67,14 @@ from repro_torch.kernels.delta_apply import delta_apply
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.extremum_apply import extremum_apply
 from repro_torch.kernels.mlp_apply import mlp_apply
+from repro_torch.kernels.shrink_pull import shrink_pull
 from repro_torch.tracing import span, spanned
 from repro_torch.utils import next_bucket, pad_to, resolve_device
 
 from .aggregators import (certified_error_bound, deferral_budgets,
                           segment_extremum, segment_sum)
 from .graph import _GROW, _MIN_SLACK, DynamicGraph, flat_row_indices
+from .ragged import _masked_pairs, _ragged_gather, _scatter_cells
 from .state import params_to_numpy
 from .workloads import Workload
 
@@ -262,29 +264,6 @@ def _patched(n: int, base: torch.Tensor, pos: torch.Tensor,
                        base[idx_c])
 
 
-def _ragged_gather(n: int, csr: DeviceCSR, rows: torch.Tensor,
-                   degs: torch.Tensor, cap: int):
-    """Expand the CSR rows' adjacency lists into one static bucket.
-
-    ``rows [R]`` are vertex ids (sentinel n allowed) with per-row counts
-    ``degs [R]`` (0 for rows to skip); slot j of the bucket holds entry
-    ``j - csum[fid] + degs[fid]`` of row ``fid``, found by ``searchsorted``
-    on the running count.  Returns (cols [cap] sentinel-n padded, flat
-    [cap] pool slots (0 where invalid), fid [cap] source row slot, valid
-    [cap], total_needed).
-    """
-    r_cap = rows.shape[0]
-    csum = torch.cumsum(degs, 0)
-    total = csum[-1]
-    e = torch.arange(cap, device=rows.device)
-    fid = torch.searchsorted(csum, e, right=True).clamp(max=r_cap - 1)
-    off = e - (csum[fid] - degs[fid])
-    valid = e < total
-    flat = torch.where(valid, csr.start[rows[fid].clamp(max=n - 1)] + off, 0)
-    cols = torch.where(valid, csr.col[flat], n)
-    return cols, flat, fid, valid, total
-
-
 def _hop_messages(n: int, h_pre: torch.Tensor, csr: DeviceCSR,
                   frontier: torch.Tensor, delta: torch.Tensor,
                   batch: BatchDev, *, weighted: bool, self_dep: bool,
@@ -298,8 +277,8 @@ def _hop_messages(n: int, h_pre: torch.Tensor, csr: DeviceCSR,
     """
     degs = torch.where(frontier < n, csr.length[frontier.clamp(max=n - 1)], 0)
     # ragged expansion of frontier out-edges into the static edge bucket
-    edst, flat, fid, evalid, total = _ragged_gather(n, csr, frontier, degs,
-                                                    e_cap)
+    edst, flat, fid, evalid, total = _ragged_gather(
+        n, csr.start, csr.col, frontier, degs, e_cap)
     ew = csr.w[flat] if weighted else torch.ones(e_cap, device=flat.device)
     evals = delta[fid] * (ew * evalid)[:, None]
 
@@ -487,23 +466,6 @@ def propagate(workload: Workload, n: int,
 # Monotonic (max/min) propagation: GROW via candidate segment-extremum,
 # SHRINK via in-neighborhood pulls, filtered frontier
 # ---------------------------------------------------------------------------
-def _masked_pairs(mask: torch.Tensor, cap: int, fill_row: int):
-    """Row-major (row, col) indices of the True cells of ``mask``, padded
-    with ``(fill_row, 0)`` to the static ``cap``: one cumsum and one
-    scatter into a ``[cap + 1]`` buffer whose last slot takes the padding
-    and the cells beyond ``cap`` (callers detect those through their own
-    ``mask.sum() > cap`` overflow check).  No ``nonzero``, so no wait for
-    the host."""
-    R, D = mask.shape
-    flat = mask.reshape(-1)
-    dest = torch.where(flat, torch.cumsum(flat, 0) - 1, cap).clamp(max=cap)
-    lin = torch.full((cap + 1,), R * D, dtype=torch.int64,
-                     device=mask.device)
-    lin = lin.scatter_(0, dest, torch.arange(R * D, device=mask.device))[:cap]
-    hit = lin < R * D
-    return torch.where(hit, lin // D, fill_row), torch.where(hit, lin % D, 0)
-
-
 def _expand_frontier_edges(n: int, csr: DeviceCSR, frontier: torch.Tensor,
                            e_cap: int):
     """Ragged gather of frontier out-edges into a static bucket.
@@ -511,19 +473,10 @@ def _expand_frontier_edges(n: int, csr: DeviceCSR, frontier: torch.Tensor,
     Returns (edst [e_cap], esrc [e_cap], n_edges_needed); sentinel n pads.
     """
     degs = torch.where(frontier < n, csr.length[frontier.clamp(max=n - 1)], 0)
-    edst, _, fid, evalid, total = _ragged_gather(n, csr, frontier, degs,
-                                                 e_cap)
+    edst, _, fid, evalid, total = _ragged_gather(
+        n, csr.start, csr.col, frontier, degs, e_cap)
     esrc = torch.where(evalid, frontier[fid], n)
     return edst, esrc, total
-
-
-def _scatter_cells(base: torch.Tensor, pr: torch.Tensor, pdim: torch.Tensor,
-                   vals) -> torch.Tensor:
-    """``base [R, d]`` with ``vals`` written at the (pr, pdim) cells; pr == R
-    is the padding row, sent to a trash row that is cut off again."""
-    out = torch.cat([base, base[:1]])
-    out[pr, pdim] = vals
-    return out[:-1]
 
 
 def _monotonic_hop(workload: Workload, params_l: dict, layer: int, n: int,
@@ -541,12 +494,14 @@ def _monotonic_hop(workload: Workload, params_l: dict, layer: int, n: int,
     mask (one cell per shrunk dim, deduplicated across the batch's
     messages), the re-cover probe drops every cell the batch's own
     candidate extremum already re-witnesses, and the survivors re-derive
-    from the in-CSR.  ``pull`` picks how: ``"pairs"`` flattens the cells
-    into (row, dim) pairs (static cap ``pd_cap``) and gathers single
-    columns of their in-neighborhoods as element reads, so ``p_cap`` bounds
-    pulled elements; ``"rows"`` re-derives every dim of each needy row with
-    row gathers, so ``p_cap`` bounds their total in-degree.  The counters
-    count cells in both.
+    from the in-CSR.  ``pull`` picks how: ``"pairs"`` re-derives only the
+    needed cells, through ``kernels/shrink_pull`` (one kernel launch on a
+    card; on the CPU its plain version flattens the cells into (row, dim)
+    pairs, static cap ``pd_cap``, and gathers single columns of their
+    in-neighborhoods as element reads), so ``p_cap`` bounds pulled
+    elements; ``"rows"`` re-derives every dim of
+    each needy row with row gathers, so ``p_cap`` bounds their total
+    in-degree.  The counters count cells in both.
 
     All extremum arithmetic runs in max-space (``sign * value``); the
     post-update layer-l values are read through the previous hop's patch.
@@ -612,7 +567,7 @@ def _monotonic_hop(workload: Workload, params_l: dict, layer: int, n: int,
             row_need = need.any(dim=1)
             degs = torch.where(row_need, in_csr.length[aff_c], 0)
             psrc, _, fid, pvalid, pull_total = _ragged_gather(
-                n, in_csr, aff_c, degs, p_cap)
+                n, in_csr.start, in_csr.col, aff_c, degs, p_cap)
             overflow = overflow | (pull_total > p_cap)
             pvals = _patched(n, H_pre, pos_p, patch[1], psrc)
             S_sh, C_sh = segment_extremum(agg, pvals,
@@ -622,27 +577,11 @@ def _monotonic_hop(workload: Workload, params_l: dict, layer: int, n: int,
             RG = torch.where(MK, S_sh, 0.0)
             base_C = torch.where(MK, C_sh, C_pre_rows)
         elif pull == "pairs":
-            overflow = overflow | (n_pairs > pd_cap)
-            pr, pdim = _masked_pairs(need, pd_cap, r_cap)
-            rows_pair = aff_c[pr.clamp(max=r_cap - 1)]
-            degs = torch.where(pr < r_cap, in_csr.length[rows_pair], 0)
-            psrc, _, fid, pvalid, pull_total = _ragged_gather(
-                n, in_csr, rows_pair, degs, p_cap)
-            overflow = overflow | (pull_total > p_cap)
-            pdim_e = pdim[fid]
-            psrc_c = psrc.clamp(max=n - 1)
-            pslot = pos_p[psrc_c]
-            pvals = torch.where(pslot >= 0,
-                                patch[1][pslot.clamp(min=0), pdim_e],
-                                H_pre[psrc_c, pdim_e])
-            S_pair, C_pair = segment_extremum(agg, pvals,
-                                              torch.where(pvalid, fid,
-                                                          pd_cap),
-                                              pd_cap, psrc)
-            MK = _scatter_cells(torch.zeros_like(need), pr, pdim, True)
-            RG = _scatter_cells(torch.zeros_like(S_pre_rows), pr, pdim,
-                                S_pair)
-            base_C = _scatter_cells(C_pre_rows, pr, pdim, C_pair)
+            MK, RG, base_C, pull_total = shrink_pull(
+                need, aff_c, in_csr.start, in_csr.length, in_csr.col, H_pre,
+                pos_p, patch[1], C_pre_rows, sign=sign, pd_cap=pd_cap,
+                p_cap=p_cap)
+            overflow = overflow | (n_pairs > pd_cap) | (pull_total > p_cap)
         else:
             raise ValueError(f"pull must be 'pairs' or 'rows', not {pull!r}")
 
@@ -818,8 +757,8 @@ def _bounded_hop(workload: Workload, layer_fn, layer: int, n: int,
     # post-update layer-l values read through the previous hop's patch
     with span("DeviceEngine.pull"):
         degs = torch.where(real_row, in_csr.length[aff_c], 0)
-        psrc, _, fid, pvalid, pull_total = _ragged_gather(n, in_csr, aff_c,
-                                                          degs, p_cap)
+        psrc, _, fid, pvalid, pull_total = _ragged_gather(
+            n, in_csr.start, in_csr.col, aff_c, degs, p_cap)
         overflow = overflow | (pull_total > p_cap)
         hmax = degs.max()
         pvals = _patched(n, H_pre, pos_p, patch[1], psrc)

@@ -58,8 +58,8 @@ import torch
 import torch.distributed as dist
 
 from .aggregators import segment_extremum, segment_sum
-from .device_engine import (_masked_pairs, _patch_pos, _patched,
-                            _scatter_cells, _unique_recipients)
+from .device_engine import _patch_pos, _patched, _unique_recipients
+from .ragged import _masked_pairs, _scatter_cells
 from .workloads import Workload
 
 _F32_EXACT = 1 << 24   # ids ride collectives as float32 below this

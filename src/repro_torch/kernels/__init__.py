@@ -18,4 +18,6 @@ with ``nvcc`` at first use.
                  pass's invertible aggregation)
     flash_attention  causal grouped-query attention with an online softmax
                  (a GQA or MHA LM prefill's attention)
+    shrink_pull  the monotonic hop's SHRINK pull: every needed (row, dim)
+                 cell's extremum and witness re-derived from the in-CSR
 """

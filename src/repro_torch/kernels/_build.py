@@ -23,7 +23,8 @@ from repro_torch.tracing import span
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("delta_apply", "mlp_apply", "extremum_apply", "embedding_bag",
-           "segment_mm", "flash_attention", "flash_attention_sm90")
+           "segment_mm", "flash_attention", "flash_attention_sm90",
+           "shrink_pull")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

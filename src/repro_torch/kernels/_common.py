@@ -10,13 +10,15 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 
 
 def check_operand(name: str, t: torch.Tensor, shape: tuple,
-                  device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous fp32 tensor of ``shape`` on the
-    CUDA ``device``: what the kernels take, and nothing else."""
+                  device: torch.device,
+                  dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` (fp32) tensor of
+    ``shape`` on the CUDA ``device``: what the kernels take, and nothing
+    else."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} is {t.dtype}, expected torch.float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")

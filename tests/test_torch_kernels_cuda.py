@@ -15,9 +15,12 @@ olmoe's MHA grouping and at ragged sequence lengths, on both of its
 routes (the wgmma kernel bit-equal across launches); the gradients of
 ``FlashAttentionFn`` (6 query heads a kv head among the shapes) and
 ``EmbeddingBagFn`` against autograd of the plain versions; the
-``embedding_bag`` custom op launching the kernel, its FLOPs counted; and a
-small ``dist`` session at world size 1 over NCCL against the full pass.  Imports no JAX, so it runs where only PyTorch is
-installed:
+``embedding_bag`` custom op launching the kernel, its FLOPs counted; a
+small ``dist`` session at world size 1 over NCCL against the full pass;
+shrink_pull bit-equal to its plain version (+/-0 aside), reruns too, and
+monotonic ``device`` sessions on the card, which launch it once a hop,
+against the same stream through a CPU session.  Imports no JAX, so it
+runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
@@ -44,6 +47,8 @@ from repro_torch.kernels.segment_mm import (coo_to_csr, segment_mm,
                                             segment_mm_csr)
 from repro_torch.kernels.segment_mm.ops import EDGE_BUDGET, partition
 from repro_torch.kernels.segment_mm.ref import partition_ref, segment_mm_ref
+from repro_torch.kernels.shrink_pull import shrink_pull
+from repro_torch.kernels.shrink_pull.ref import shrink_pull_ref
 
 S_TOL = dict(atol=1e-5, rtol=1e-5)
 H_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -934,3 +939,168 @@ def test_dist_session_world_size_1_on_card(cuda, name, engine):
                                    H[l], atol=2e-3, rtol=2e-3)
     torch.testing.assert_close(torch.as_tensor(s.query(), device=cuda),
                                H[-1], atol=2e-3, rtol=2e-3)
+
+
+def _pull_case(seed, d, sign, n=3000, R=700, hub=1500):
+    """The SHRINK pull's operands on the card: a slack-pool in-CSR of
+    random in-degrees with one hub of ``hub`` in-edges (the cited degree
+    law's largest is 1,411), three more rows past the kernel's LONG and
+    one vertex with none, all among the first block's recipients with
+    needed dims; values half from a small integer set (ties) and half
+    normal, -0.0 among them; 300 patched sources (at most n / 2); 100 rows
+    with no needed dim and 20 padding rows (the sentinel's clamp).
+    Returns (operands, the caps that fit them)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 12, size=n)
+    deg[7], deg[11] = hub, 0
+    deg[20:23] = 65, 200, min(n, 513)        # walked by their block too
+    col, start = [], []
+    for v in range(n):
+        start.append(len(col))
+        col += rng.choice(n, size=deg[v], replace=False).tolist()
+        col += [-1] * int(rng.integers(0, 3))
+    H = np.where(rng.random((n + 1, d)) < 0.5,
+                 rng.integers(-3, 4, size=(n + 1, d)),
+                 rng.normal(size=(n + 1, d))).astype(np.float32)
+    H[rng.random((n + 1, d)) < 0.05] = -0.0
+    aff = rng.choice(np.setdiff1d(np.arange(n), [7, 11]), size=R,
+                     replace=False)
+    aff[:5] = 7, 11, 20, 21, 22
+    need = rng.random((R, d)) < 0.08
+    need[[0, 2, 3, 4]] = rng.random((4, d)) < 0.5
+    need[1, : max(1, d // 4)] = True
+    need[5:105] = False
+    aff[-20:], need[-20:] = n - 1, False
+    P = min(300, n // 2)
+    patched = rng.choice(n, size=P, replace=False)
+    pos = np.full(n + 1, -1, np.int64)
+    pos[patched], pos[n] = np.arange(P), P
+    patch = rng.normal(size=(P + 1, d)).astype(np.float32)
+    C_pre = rng.integers(-1, n, size=(R, d)).astype(np.int32)
+    i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64), device="cuda")
+    args = (torch.as_tensor(need, device="cuda"), i64(aff), i64(start),
+            i64(deg), i64(col), torch.as_tensor(H, device="cuda"), i64(pos),
+            torch.as_tensor(patch, device="cuda"),
+            torch.as_tensor(C_pre, device="cuda"))
+    total = int((deg[aff] * need.sum(axis=1)).sum())
+    return args, (max(1, int(need.sum())), max(1, total))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 40, 128, 130])
+@pytest.mark.parametrize("sign", [1, -1])
+def test_shrink_pull_kernel_on_card(cuda, d, sign):
+    """The kernel against its plain version on the card's tensors: MK,
+    the witnesses and ``pull_total`` equal, RG bit-equal (+/-0 aside), a
+    rerun bit-equal, one launch a call."""
+    args, (pd_cap, p_cap) = _pull_case(d + sign, d, sign)
+    before = shrink_pull.launches
+    MK, RG, C, total = shrink_pull(*args, sign=sign, pd_cap=pd_cap,
+                                   p_cap=p_cap)
+    _, RG2, C2, total2 = shrink_pull(*args, sign=sign, pd_cap=pd_cap,
+                                     p_cap=p_cap)
+    MK_r, RG_r, C_r, total_r = shrink_pull_ref(*args, sign=sign,
+                                               pd_cap=pd_cap, p_cap=p_cap)
+    torch.cuda.synchronize()
+    assert shrink_pull.launches == before + 2
+    need = args[0]
+    assert torch.equal(MK, need) and torch.equal(MK_r, need)
+    torch.testing.assert_close(RG, RG_r, rtol=0, atol=0)
+    assert torch.equal(C, C_r)
+    assert int(total) == int(total_r) == p_cap
+    assert torch.equal(RG.view(torch.int32), RG2.view(torch.int32))
+    assert torch.equal(C, C2) and int(total2) == p_cap
+    # the long rows and the row with no in-edge took part
+    assert (C[[0, 2, 3, 4]][need[[0, 2, 3, 4]]] >= 0).all()
+    assert (C[1][need[1]] == -1).all()
+    assert (RG[1][need[1]] == sign * -float("inf")).all()
+
+
+@pytest.mark.cuda
+def test_shrink_pull_refuses_what_the_kernel_does_not_take(cuda):
+    args, (pd_cap, p_cap) = _pull_case(0, 8, 1, n=200, R=50, hub=20)
+    bad = {1: args[1].to(torch.int32),                    # aff_c int32
+           5: args[5].t().contiguous().t(),               # H_pre strided
+           8: args[8][:, :4]}                             # C_pre_rows shape
+    for i, t in bad.items():
+        with pytest.raises((TypeError, ValueError)):
+            shrink_pull(*args[:i], t, *args[i + 1:], sign=1, pd_cap=pd_cap,
+                        p_cap=p_cap)
+    with pytest.raises(ValueError):
+        shrink_pull(*args, sign=0, pd_cap=pd_cap, p_cap=p_cap)
+    with pytest.raises(ValueError):
+        shrink_pull(args[0].cpu(), *args[1:], sign=1, pd_cap=pd_cap,
+                    p_cap=p_cap)
+
+
+def _witnesses_hold(state, n):
+    """S[l][v, j] == H[l-1][C[l][v, j], j] wherever C >= 0, the identity
+    (+/-inf) wherever C == -1."""
+    for l in range(1, len(state.S)):
+        C, S, H = state.C[l][:n], state.S[l][:n], state.H[l - 1][:n]
+        has = C >= 0
+        got = H.gather(0, C.long().clamp(min=0))
+        assert torch.equal(got[has], S[has]), l
+        assert not torch.isfinite(S[~has]).any(), l
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gs-max", "gc-min"])
+def test_shrink_pull_session_on_card(cuda, name):
+    """A monotonic ``device`` session on the card (pull "pairs": the
+    kernel) against the same stream through a CPU session (pull "pairs":
+    the plain version): per batch the affected ids, the four SHRINK
+    counters and the retries equal, one launch a hop of every attempt; at
+    the end H within 1e-4 and every witness attaining its extremum.  Under
+    the profiler each ``DeviceEngine.shrink`` span holds at most 12
+    top-level aten calls, and the window one ``shrink_pull`` kernel a
+    span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import InferenceSession, SessionConfig
+    cfg = dict(workload=name, engine="device", graph="powerlaw", n=3000,
+               m=18000, n_layers=3, d_in=32, d_hidden=32, n_classes=8)
+    card = InferenceSession.build(SessionConfig(**cfg, device="cuda"))
+    host = InferenceSession.build(SessionConfig(**cfg, device="cpu"))
+    host.engine.impl.pull = "pairs"
+    eng = card.engine.impl
+    assert eng.pull == "pairs"
+    streams = [s.make_stream(800, seed=1).updates for s in (card, host)]
+    fields = ("shrink_events", "rows_reaggregated", "dims_reaggregated",
+              "recover_hits")
+    before, retries = shrink_pull.launches, eng.retries
+    got = card.ingest(streams[0][:600], batch_size=100).results
+    want = host.ingest(streams[1][:600], batch_size=100).results
+    for step, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(a.affected, b.affected,
+                                      err_msg=f"step {step}")
+        assert [getattr(a, f) for f in fields] == \
+            [getattr(b, f) for f in fields], f"step {step}"
+    assert len(got) == len(want) == 6
+    assert sum(r.dims_reaggregated for r in got) > 0
+    assert eng.retries == host.engine.impl.retries
+    attempts = len(got) + eng.retries - retries
+    assert shrink_pull.launches - before == 3 * attempts
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        card.ingest(streams[0][600:], batch_size=100)
+        torch.cuda.synchronize()
+    host.ingest(streams[1][600:], batch_size=100)
+    spans = [e for e in prof.events() if e.name == "DeviceEngine.shrink"
+             and e.device_type == DeviceType.CPU]
+    assert spans
+    for e in spans:
+        aten = [c.name for c in e.cpu_children if c.name.startswith("aten::")]
+        assert len(aten) <= 12, aten
+    kernels = [ev for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == DeviceType.CUDA
+               and not ev.is_user_annotation() and "shrink_pull" in ev.name()]
+    assert len(kernels) == len(spans)
+
+    st, st_h = card.sync(), host.sync()
+    for l in range(1, len(st.H)):
+        np.testing.assert_allclose(st.H[l], st_h.H[l], atol=1e-4, rtol=1e-4,
+                                   err_msg=f"{name} layer {l}")
+    _witnesses_hold(eng.state, eng.n)
